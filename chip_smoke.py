@@ -5,12 +5,21 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/``, holds each kernel against its plain PyTorch version on
-the card, times both, runs the paper's quickstart loop (edge generator →
-WAN topic → cloud k-means processor → parameter service) through
-``repro_torch`` on the card, and checks the outputs against the plain path
-on the same messages.  Each phase prints one JSON line; the card's
-``nvidia-smi`` name and power limit, then a ``{"kernels": [...]}`` line,
-then the ``{"ok": true, ...}`` line come last.  Any failure raises and
+the card, times both, and drives the port's two main paths on the card,
+each with the launch counts set to 0 just before it and read just after:
+
+* the paper's quickstart loop (edge generator → WAN topic → cloud k-means
+  processor → parameter service), checked against the plain path on the
+  same messages;
+* serving hymba-1.5b at full width (random fp32 weights from a seed, bf16
+  cache) through ``BatchServer``: two waves of 4 requests, 1,024- and
+  4,096-token prompts, 32 new tokens each, through the flash-attention and
+  SSD kernels; then the same waves through the same server with
+  ``impl="dense"`` (no kernel), which must agree.
+
+Each phase prints one JSON line; the card's ``nvidia-smi`` name and power
+limit, then a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+line come last.  Any failure raises and
 exits non-zero before the last line; so does a host without a CUDA card
 or a directory without the package beside this script.
 """
@@ -43,6 +52,52 @@ MAIN_SHAPE = (10_000, 32, 25)     # what one quickstart message gives
 D2_RTOL = 1e-5
 N_MESSAGES = 64
 SEED = 0
+
+# flash attention: (b, sq, sk, h, hkv, d, causal, window).  The reference's
+# cases (tests/test_kernels.py:25-34), hymba-1.5b's two prefill waves,
+# internlm2-1.8b's heads at 4,096 tokens, and a head_dim of 192.
+FLASH_CASES = [
+    (1, 128, 128, 2, 2, 64, True, None),
+    (2, 256, 256, 4, 2, 64, True, None),
+    (1, 384, 384, 8, 1, 32, True, None),
+    (1, 128, 128, 4, 4, 128, False, None),
+    (2, 200, 200, 2, 2, 64, True, 64),
+    (1, 512, 512, 2, 1, 64, True, 128),
+    (1, 96, 96, 2, 2, 16, True, None),
+    (4, 1024, 1024, 25, 5, 64, True, 2048),
+    (4, 4096, 4096, 25, 5, 64, True, 2048),
+    (1, 4096, 4096, 16, 8, 128, True, None),
+    (1, 1024, 1024, 16, 2, 192, True, None),
+]
+FLASH_MAIN = [(4, 1024, 1024, 25, 5, 64, True, 2048),
+              (4, 4096, 4096, 25, 5, 64, True, 2048)]
+# SSD: (b, s, nh, hd, g, ds, chunk).  The reference's cases
+# (tests/test_kernels.py:99-106), hymba-1.5b's widest wave, mamba2-130m's
+# widths, and a ragged chunk of 200.
+SSD_CASES = [
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 128, 4, 32, 1, 16, 32),
+    (1, 256, 8, 64, 2, 32, 64),
+    (1, 256, 24, 64, 1, 128, 64),
+    (2, 128, 4, 32, 4, 16, 128),
+    (4, 4096, 50, 64, 1, 16, 256),
+    (2, 4096, 24, 64, 1, 128, 256),
+    (2, 400, 4, 64, 1, 16, 200),
+]
+SSD_MAIN = [(4, 1024, 50, 64, 1, 16, 256), (4, 4096, 50, 64, 1, 16, 256)]
+# tests/test_kernels.py:16-18 (fp32, bf16) and :123 (the SSD scan)
+TOL = {"fp32": 2e-5, "bf16": 5e-2}
+SSD_TOL = 1e-3
+# serving: hymba-1.5b, 4 slots, two waves of 4 requests
+SERVE_ARCH = "hymba-1.5b"
+SERVE_WAVES = (1024, 4096)
+SERVE_SLOTS = 4
+SERVE_NEW_TOKENS = 32
+SERVE_MAX_LEN = 4128
+# model level: tests/test_serve.py's 2e-3; greedy tokens may differ only at
+# a near-tie of the plain run's top two logits
+MODEL_TOL = 2e-3
+NEAR_TIE = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -281,6 +336,352 @@ def run_pipeline(torch, core, ml, kk, device):
             "kmeans_assign": infer_launches["kmeans_assign"]}
 
 
+def _tdtype(torch, name):
+    return {"fp32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+def flash_inputs(torch, case, dtype, device, seed):
+    b, sq, sk, h, hkv, d = case[:6]
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=device  # noqa
+                                    ).to(_tdtype(torch, dtype))
+    return mk(b, sq, h, d), mk(b, sk, hkv, d), mk(b, sk, hkv, d)
+
+
+def flash_tol(want, dtype):
+    """Kernel against plain: both compute in fp32 from the same inputs and
+    round once to the output type.  fp32 takes the reference's 2e-5; bf16
+    one rounding, 2^-7 of the value, plus 1e-3 of the largest value for
+    the fp32 sums' order near a rounding boundary."""
+    w = want.float().abs()
+    if dtype == "fp32":
+        return TOL["fp32"] * (1 + w)
+    return 2.0 ** -7 * w + 1e-3 * w.max()
+
+
+def check_flash(torch, fa, tref, device):
+    """The flash kernel against its plain version on every case in fp32 and
+    bf16 (:func:`flash_tol`), and against the O(S²) oracle where it fits,
+    at the reference's tolerance; raises on a miss.  Returns the largest
+    fp32 error."""
+    worst = 0.0
+    for case in FLASH_CASES:
+        causal, window = case[6], case[7]
+        for dtype in ("fp32", "bf16"):
+            q, k, v = flash_inputs(torch, case, dtype, device, sum(case[:6]))
+            out = fa.launch(q, k, v, causal=causal, window=window)
+            want = fa.plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            tol = flash_tol(want, dtype)
+            if out.shape != q.shape or out.dtype != q.dtype or bool(
+                    ((out.float() - want.float()).abs() > tol).any()):
+                raise AssertionError(f"flash kernel vs plain at {case} "
+                                     f"{dtype}: max error {err}")
+            row = {"case": list(case), "dtype": dtype, "max_abs_err": err}
+            if case[1] <= 512:
+                oracle = tref.flash_attention_ref(q, k, v, causal=causal,
+                                                  window=window)
+                row["oracle_max_abs_err"] = float(
+                    (out.float() - oracle.float()).abs().max())
+                if bool(((out.float() - oracle.float()).abs()
+                         > TOL[dtype] * (1 + oracle.float().abs())).any()):
+                    raise AssertionError(f"flash kernel vs oracle at {case} "
+                                         f"{dtype}")
+            if dtype == "fp32":
+                worst = max(worst, err)
+            emit("check_flash", **row)
+    return worst
+
+
+def ssd_inputs(torch, case, dtype, device, seed):
+    b, s, nh, hd, gr, ds, _ = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa
+    td = _tdtype(torch, dtype)
+    return (mk(b, s, nh, hd).to(td),
+            torch.rand((b, s, nh), generator=g, device=device) * 0.099 + 1e-3,
+            -(torch.rand((nh,), generator=g, device=device) * 1.5 + 0.5),
+            mk(b, s, gr, ds).to(td), mk(b, s, gr, ds).to(td), mk(nh))
+
+
+def check_ssd(torch, ssd, tref, device):
+    """The SSD chunk kernel (and the full scan through it) against the
+    plain version on every case in fp32, within 1e-3, and against the
+    exact sequential oracle at the small cases; hymba's and a small case
+    also in bf16.  Returns the largest fp32 error."""
+    worst = 0.0
+    runs = [(case, "fp32") for case in SSD_CASES] + [
+        (SSD_CASES[2], "bf16"), (SSD_CASES[5], "bf16")]
+    for case, dtype in runs:
+        chunk = case[-1]
+        args = ssd_inputs(torch, case, dtype, device, sum(case))
+        parts = ssd.chunk_launch(*args, chunk)
+        y, fin = ssd.inter_chunk(*parts, args[4], chunk)
+        want_parts = ssd.chunk_plain(*args, chunk)
+        want_y, want_fin = ssd.inter_chunk(*want_parts, args[4], chunk)
+        torch.cuda.synchronize()
+        tol = SSD_TOL if dtype == "fp32" else TOL["bf16"]
+        errs = {}
+        for name, got, want in (("y_intra", parts[0], want_parts[0]),
+                                ("st", parts[1], want_parts[1]),
+                                ("cum", parts[2], want_parts[2]),
+                                ("y", y, want_y), ("final", fin, want_fin)):
+            diff = (got.float() - want.float()).abs()
+            errs[name] = float(diff.max())
+            if bool((diff > tol * (1 + want.float().abs())).any()):
+                raise AssertionError(f"SSD kernel vs plain at {case} "
+                                     f"{dtype}: {name} error {errs[name]}")
+        row = {"case": list(case), "dtype": dtype, "max_abs_err": errs}
+        if case[1] <= 512 and dtype == "fp32":
+            y_o, fin_o = tref.ssd_ref(*args)
+            row["oracle_max_abs_err"] = [
+                float((y - y_o).abs().max()), float((fin - fin_o).abs().max())]
+            if bool(((y - y_o).abs() > SSD_TOL * (1 + y_o.abs())).any()) or \
+                    bool(((fin - fin_o).abs()
+                          > SSD_TOL * (1 + fin_o.abs())).any()):
+                raise AssertionError(f"SSD scan vs oracle at {case}")
+        if dtype == "fp32":
+            worst = max(worst, max(errs.values()))
+        emit("check_ssd", **row)
+    return worst
+
+
+def flash_bound_ms(case, dtype):
+    """Bytes: q, k, v read once and o written once.  Operations: 4·D flops
+    (q·k and p·v) for each (query, key) pair the masks leave open."""
+    b, sq, sk, h, hkv, d, causal, window = case
+    e = ELEM_BYTES[dtype]
+    nbytes = e * d * (2 * b * sq * h + 2 * b * sk * hkv)
+    qpos = np.arange(sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, int)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    flops = 4.0 * b * h * d * pairs
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def ssd_bound_ms(case, dtype):
+    """Operations, for each (batch, head, chunk): 2·(ds + hd) flops (C·Bᵀ
+    and its product with x) for each of the q(q+1)/2 causal (i, j) pairs
+    of the chunk, as ``flash_bound_ms`` counts only unmasked pairs, and
+    2q·ds·hd for the chunk state.  Bytes: x, dt, B and C read once; y, the
+    chunk states and cum written once."""
+    b, s, nh, hd, g, ds, q = case
+    nc = s // q
+    e = ELEM_BYTES[dtype]
+    nbytes = (e * (2 * b * s * nh * hd + 2 * b * s * g * ds) + 4 * b * s * nh
+              + 4 * b * nh * nc * (ds * hd + q) + 8 * nh)
+    flops = b * nh * nc * (2.0 * (ds + hd) * q * (q + 1) / 2
+                           + 2.0 * q * ds * hd)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def sdpa_call(torch, q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call on the same function (the
+    library yardstick; the port never calls it), inputs laid out for it
+    outside the call."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sq, sk = q.shape[1], k.shape[1]
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep = keep & (kpos <= qpos)
+    if window is not None:
+        keep = keep & (kpos > qpos - window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, enable_gqa=True)
+
+
+def time_attention_ssd(torch, fa, ssd, device):
+    """Kernel, plain and library times at the serving path's shapes, fp32
+    and bf16: CUDA events, median of 5 repeats."""
+    rows = []
+    for case in FLASH_MAIN:
+        causal, window = case[6], case[7]
+        for dtype in ("fp32", "bf16"):
+            q, k, v = flash_inputs(torch, case, dtype, device, 11)
+            lib = sdpa_call(torch, q, k, v, causal, window)
+            lib_out = lib().transpose(1, 2)
+            ker_out = fa.launch(q, k, v, causal=causal, window=window)
+            row = {"kernel": "flash_attention", "case": list(case),
+                   "dtype": dtype,
+                   "kernel_ms": time_ms(torch, lambda: fa.launch(
+                       q, k, v, causal=causal, window=window), 5),
+                   "plain_ms": time_ms(torch, lambda: fa.plain(
+                       q, k, v, causal=causal, window=window), 1),
+                   "library_ms": time_ms(torch, lib, 5),
+                   "library_max_abs_diff": float(
+                       (lib_out.float() - ker_out.float()).abs().max())}
+            row["bound_ms"], row["bound_by"] = flash_bound_ms(case, dtype)
+            emit("timing", **row)
+            rows.append(row)
+            del q, k, v, lib, lib_out, ker_out
+    for case in SSD_MAIN:
+        chunk = case[-1]
+        for dtype in ("fp32", "bf16"):
+            args = ssd_inputs(torch, case, dtype, device, 13)
+            row = {"kernel": "ssd_chunk_scan", "case": list(case),
+                   "dtype": dtype,
+                   "kernel_ms": time_ms(torch, lambda: ssd.chunk_launch(
+                       *args, chunk), 5),
+                   "plain_ms": time_ms(torch, lambda: ssd.chunk_plain(
+                       *args, chunk), 1),
+                   "scan_ms": time_ms(torch, lambda: ssd.ssd_chunk_scan(
+                       *args, chunk=chunk), 5),
+                   "library_ms": None}
+            row["bound_ms"], row["bound_by"] = ssd_bound_ms(case, dtype)
+            emit("timing", **row)
+            rows.append(row)
+    return rows
+
+
+def _top2_gap(torch, logits, vocab):
+    top = torch.topk(logits[..., :vocab].float(), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu()
+
+
+def run_server(torch, serve, params, cfg, device, impl, prompts):
+    """Both waves through a fresh ``BatchServer``, capturing each wave's
+    last-position prefill logits, its prefill cache and the top-two logit
+    gap of every greedy token."""
+    server = serve.BatchServer(params, cfg, n_slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN, impl=impl,
+                               device=device)
+    captured = []
+    prefill, decode = server._prefill1, server._decode
+
+    def capture_prefill(p, inputs):
+        logits, cache = prefill(p, inputs)
+        captured.append({"logits": logits[:, -1].float().clone(),
+                         "cache": {k: v.clone() for k, v in cache.items()},
+                         "gaps": [_top2_gap(torch, logits[:, -1],
+                                            cfg.vocab_size)]})
+        return logits, cache
+
+    def capture_decode(p, cache, inputs):
+        logits, cache = decode(p, cache, inputs)
+        captured[-1]["gaps"].append(_top2_gap(torch, logits[:, 0],
+                                              cfg.vocab_size))
+        return logits, cache
+
+    server._prefill1, server._decode = capture_prefill, capture_decode
+    for i, pr in enumerate(prompts):
+        server.submit(serve.Request(request_id=f"req-{i}", prompt=pr,
+                                    max_new_tokens=SERVE_NEW_TOKENS))
+    t0 = time.monotonic()
+    done = server.run(max_requests=len(prompts), idle_timeout_s=1.0)
+    torch.cuda.synchronize()
+    return server, done, captured, time.monotonic() - t0
+
+
+def serve_hymba(torch, serve, T, fa, ssd, device):
+    """hymba-1.5b at full width through ``BatchServer`` on the card, with
+    the kernel launch counts set to 0 just before and read just after."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(SERVE_ARCH)
+    t0 = time.monotonic()
+    params = T.init_params(cfg, device=device, dtype=torch.float32,
+                           seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = T.param_count(params)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_WAVES for _ in range(SERVE_SLOTS)]
+    # warm the libraries (cuBLAS handles, allocator) on a short wave
+    run_server(torch, serve, params, cfg, device, "kernel",
+               [prompts[0][:64]])
+    counters = [fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_chunk_scan"]]
+    torch.cuda.reset_peak_memory_stats(device)
+    for c in counters:
+        c.reset()
+    server, done, captured, wall = run_server(torch, serve, params, cfg,
+                                              device, "kernel", prompts)
+    launches = {"flash_attention": counters[0].count,
+                "ssd_chunk_scan": counters[1].count}
+    want = len(SERVE_WAVES) * cfg.n_layers
+    if launches != {"flash_attention": want, "ssd_chunk_scan": want}:
+        raise AssertionError(f"serve launches {launches}, expected {want} "
+                             f"of each (waves x layers)")
+    n_tok = sum(len(r.result_tokens) for r in done)
+    if len(done) != len(prompts) or n_tok != len(prompts) * SERVE_NEW_TOKENS:
+        raise AssertionError(f"served {len(done)} requests, {n_tok} tokens")
+    for r in done:
+        if not all(0 <= t < cfg.vocab_size for t in r.result_tokens):
+            raise AssertionError(f"token out of the vocabulary in {r}")
+    for w in captured:
+        if not bool(torch.isfinite(w["logits"]).all()) or not all(
+                bool(torch.isfinite(v.float()).all())
+                for v in w["cache"].values()):
+            raise AssertionError("non-finite prefill logits or cache")
+    first = np.array([r.t_first_token - r.t_submit for r in done])
+    emit("serve", arch=SERVE_ARCH, params=n_params, init_s=init_s,
+         requests=len(done), tokens=n_tok, wall_s=wall,
+         tokens_per_s=n_tok / wall,
+         first_token_ms_mean=float(first.mean() * 1e3),
+         first_token_ms_p95=float(np.percentile(first, 95) * 1e3),
+         prefill_ms=[w["prefill_s"] * 1e3 for w in server.waves],
+         decode_ms_per_step=[float(np.mean(w["decode_s"]) * 1e3)
+                             for w in server.waves],
+         waves=[[w["batch"], w["prompt_len"]] for w in server.waves],
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated(device)
+         / 1e9, launches=launches)
+    return params, cfg, prompts, done, captured, launches
+
+
+def serve_vs_plain(torch, serve, fa, ssd, params, cfg, prompts, done,
+                   captured, device):
+    """The same waves through the same server with ``impl="dense"`` (no
+    kernel): prefill logits and captured caches within 2e-3 (a bf16 k/v
+    entry also within one bf16 rounding, 2^-7 of its size, since the fp32
+    values it rounds differ slightly); greedy tokens equal up to the first
+    place where the plain run's top two logits lie within 1e-4."""
+    f0 = fa.LAUNCHES["flash_attention"].count
+    s0 = ssd.LAUNCHES["ssd_chunk_scan"].count
+    _, done_p, captured_p, wall = run_server(torch, serve, params, cfg,
+                                             device, "dense", prompts)
+    if (fa.LAUNCHES["flash_attention"].count != f0
+            or ssd.LAUNCHES["ssd_chunk_scan"].count != s0):
+        raise AssertionError("the dense path launched a kernel")
+    errs = {}
+    for w, (a, b) in enumerate(zip(captured, captured_p)):
+        diff = (a["logits"] - b["logits"]).abs()
+        errs[f"wave{w}_logits"] = float(diff.max())
+        if bool((diff > MODEL_TOL * (1 + b["logits"].abs())).any()):
+            raise AssertionError(f"wave {w}: prefill logits differ by "
+                                 f"{float(diff.max())}")
+        for name, ca in a["cache"].items():
+            cb = b["cache"][name].float()
+            diff = (ca.float() - cb).abs()
+            slack = 2.0 ** -7 if ca.dtype == torch.bfloat16 else 0.0
+            errs[f"wave{w}_{name}"] = float(diff.max())
+            if bool((diff > MODEL_TOL + (MODEL_TOL + slack) * cb.abs()).any()):
+                raise AssertionError(f"wave {w}: cache {name} differs by "
+                                     f"{float(diff.max())}")
+    near_ties, compared = 0, 0
+    wave_of = [i // SERVE_SLOTS for i in range(len(prompts))]
+    for i, (a, b) in enumerate(zip(done, done_p)):
+        gaps = captured_p[wave_of[i]]["gaps"]
+        for t, (ta, tb) in enumerate(zip(a.result_tokens, b.result_tokens)):
+            compared += 1
+            if ta != tb:
+                gap = float(gaps[t][i % SERVE_SLOTS])
+                if gap >= NEAR_TIE:
+                    raise AssertionError(f"{a.request_id} token {t}: "
+                                         f"{ta} vs {tb}, gap {gap}")
+                near_ties += 1
+                break           # later tokens follow different histories
+    emit("serve_vs_plain", wall_s=wall, max_abs_err=errs,
+         tokens_compared=compared, near_ties=near_ties,
+         tokens_equal=sum(a.result_tokens == b.result_tokens
+                          for a, b in zip(done, done_p)))
+
+
 def check_against_plain_path(torch, core, ml, device):
     """The same seeded messages through the processor on the card (the
     kernel) and on the host (the plain version), in order: equal outlier
@@ -324,7 +725,12 @@ def main() -> int:
     import repro_torch.core as core
     import repro_torch.ml as ml
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kmeans as kk
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import ssd
+    from repro_torch.models import transformer as T
+    import repro_torch.serve as serve
 
     # the plain version's fp32 matmul must not run in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -358,6 +764,16 @@ def main() -> int:
     launches = run_pipeline(torch, core, ml, kk, device)
     check_against_plain_path(torch, core, ml, device)
 
+    worst["flash_attention"] = check_flash(torch, fa, tref, device)
+    worst["ssd_chunk_scan"] = check_ssd(torch, ssd, tref, device)
+    timings += time_attention_ssd(torch, fa, ssd, device)
+    params, cfg, prompts, done, captured, serve_launches = serve_hymba(
+        torch, serve, T, fa, ssd, device)
+    launches.update(serve_launches)
+    serve_vs_plain(torch, serve, fa, ssd, params, cfg, prompts, done,
+                   captured, device)
+    del params, captured
+
     kernels = []
     for name, replaces in (
             ("kmeans_assign_update", "src/repro/kernels/kmeans.py:196"),
@@ -373,6 +789,23 @@ def main() -> int:
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None})
+    for name, source, replaces, main in (
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:120", FLASH_MAIN[-1]),
+            ("ssd_chunk_scan", "src/repro_torch/kernels/csrc/ssd.cu",
+             "src/repro/kernels/ssd.py:92", SSD_MAIN[-1])):
+        main_row = next(r for r in timings if r["kernel"] == name
+                        and tuple(r["case"]) == main
+                        and r["dtype"] == "fp32")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": worst[name], "ms": main_row["kernel_ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

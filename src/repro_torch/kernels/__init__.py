@@ -1,3 +1,4 @@
 """Hand-written Hopper kernels with their plain PyTorch versions
-(``kmeans``), the k-means oracles (``ref``), int8 quantization
-(``quant``) and the device-dispatching wrappers (``ops``)."""
+(``kmeans``, ``flash_attention``, ``ssd``), their oracles (``ref``), int8
+quantization (``quant``), the nvcc/ctypes builder (``build``) and the
+device-dispatching wrappers (``ops``)."""

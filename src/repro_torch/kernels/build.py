@@ -11,6 +11,9 @@ The sources expose a plain C interface (``extern "C"``), so the build needs
 no PyTorch headers and takes seconds.  :func:`library` is guarded by a lock,
 because the pipeline's worker threads can reach a kernel together on the
 first messages; :func:`build_all` starts one ``nvcc`` per source at once.
+
+It also holds what every kernel wrapper shares: the launch counter, the
+check for a Hopper card, and the shared-memory limit of an sm_90 block.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dynamic shared memory a block may take on sm_90 (227 KB)
+MAX_SMEM_BYTES = 232_448
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -117,3 +123,34 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
         return lib
+
+
+class LaunchCounter:
+    """A thread-safe count of kernel launches."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def incr(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+
+def require_hopper(device, what: str) -> None:
+    """Raise unless ``device`` is an sm_90 card, which the sources target."""
+    import torch
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the {what} kernel is built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(device)} has capability {cap}")

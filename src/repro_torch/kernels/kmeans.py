@@ -45,34 +45,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, quant
+from repro_torch.kernels.build import MAX_SMEM_BYTES, LaunchCounter
 
 PRECISIONS = ("fp32", "bf16", "int8")
 _DTYPE_CODE = {"fp32": 0, "bf16": 1, "int8": 2}
-# dynamic shared memory a block may take on sm_90 (227 KB)
-MAX_SMEM_BYTES = 232_448
-
-
-class LaunchCounter:
-    """A thread-safe count of kernel launches."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def incr(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    @property
-    def count(self) -> int:
-        with self._lock:
-            return self._n
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-
 LAUNCHES = {"kmeans_assign": LaunchCounter(),
             "kmeans_assign_update": LaunchCounter()}
 
@@ -161,14 +137,6 @@ def plain(prep: Prepared, fused: bool):
     return ids.to(torch.int32), dmin, sums, counts
 
 
-def _require_hopper(device: torch.device) -> None:
-    cap = torch.cuda.get_device_capability(device)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"the k-means kernel is built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(device)} has capability {cap}")
-
-
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kmeans_smem_bytes.argtypes = [i, i]
@@ -204,7 +172,7 @@ def launch(prep: Prepared, fused: bool):
     dev = pts.device
     if dev.type != "cuda":
         raise ValueError(f"launch needs CUDA tensors, got {dev}")
-    _require_hopper(dev)
+    build.require_hopper(dev, "k-means")
     n, f = pts.shape
     k = prep.centroids.shape[0]
     if n >= 2 ** 31 or k * f >= 2 ** 31:

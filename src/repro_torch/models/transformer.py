@@ -1,0 +1,259 @@
+"""The decoder of the zoo, in PyTorch: the counterpart of
+``repro.models.transformer`` for the families this port serves (attention
+kinds ``gqa``, ``hybrid`` and ``none``, token inputs, RoPE or none).
+
+* The reference's ``lax.scan`` over stacked layer params becomes a Python
+  loop over ``params["blocks"]``, a list of one dict a layer.
+* Public layouts are the reference's: activations (B,S,D), q/k/v
+  (B,S,H,D), logits (B,S,V) or (B,S,K,V), and caches as a dict of tensors
+  stacked on a leading layer axis, exactly as :func:`init_cache` allocates
+  them (``repro.models.transformer.init_cache``).
+* :func:`decode_step` updates the cache **in place** and returns it.
+
+``ShardRules``/``param_pspecs`` wait for the launch stack and ``loss_fn``
+for training (ROADMAP A9).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+
+def default_device(device=None) -> torch.device:
+    """``cuda:0`` unless the caller names a device; raises when CUDA is
+    asked for and there is no card."""
+    dev = torch.device("cuda:0" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{dev} was asked for and no CUDA device is "
+                           f"available; pass device='cpu' to run on the host")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+
+def _block_init(generator, cfg: ArchConfig, dtype, device):
+    p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.attn_kind == "gqa":
+        p["attn"] = L.gqa_init(generator, cfg, dtype, device)
+    elif cfg.attn_kind == "hybrid":
+        p["mixer"] = L.hybrid_init(generator, cfg, dtype, device)
+    elif cfg.attn_kind == "none":
+        p["ssm"] = L.ssm_init(generator, cfg, dtype, device)
+    else:
+        raise ValueError(cfg.attn_kind)
+    if cfg.d_ff:
+        p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+        p["ffn"] = L.ffn_init(generator, cfg, dtype, device)
+    return p
+
+
+def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator]
+                = None, device=None, dtype=torch.float32, seed: int = 0):
+    """Random parameters with the reference's shapes and scales
+    (``transformer.py:78-120``, ``layers.py``): normal draws × 0.02 (output
+    projections × 0.02/√(2L)), norms at 1, the pad rows of ``embed`` and
+    pad columns of ``head`` zeroed, ``A_log = log(1..nh)``, ``D = 1`` and
+    ``dt_bias`` the inverse softplus of a log-uniform draw in
+    [dt_min, dt_max].  The draws come from ``generator`` (made from
+    ``seed`` on ``device`` when not given), so they are not the
+    reference's: tests carry the reference's weights across with
+    :mod:`repro_torch.models.convert`."""
+    L.check_supported(cfg)
+    device = default_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    params = {}
+    v, d, kb = cfg.padded_vocab_size, cfg.d_model, cfg.n_codebooks
+    shape = (v, d) if kb == 1 else (kb, v, d)
+    emb = L._init(generator, shape, 0.02, dtype, device)
+    emb[..., cfg.vocab_size:, :] = 0.0          # pad rows (never indexed)
+    params["embed"] = emb
+    params["ln_f"] = torch.ones((d,), dtype=dtype, device=device)
+    if not cfg.tie_embeddings:
+        shape = (d, v) if kb == 1 else (kb, d, v)
+        head = L._init(generator, shape, 0.02, dtype, device)
+        head[..., cfg.vocab_size:] = 0.0        # pad cols -> pad logits == 0
+        params["head"] = head
+    params["blocks"] = [_block_init(generator, cfg, dtype, device)
+                        for _ in range(cfg.n_layers)]
+    return params
+
+
+def param_count(params) -> int:
+    """Elements over every tensor of a parameter tree."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return sum(param_count(v) for v in params)
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(params, cfg: ArchConfig, inputs):
+    tok = inputs["tokens"]
+    if cfg.n_codebooks == 1:
+        return params["embed"][tok]
+    # musicgen: (B,S,K) codebook ids, summed embeddings
+    out = params["embed"][0][tok[..., 0]]
+    for k in range(1, cfg.n_codebooks):
+        out = out + params["embed"][k][tok[..., k]]
+    return out
+
+
+def _logits(params, cfg: ArchConfig, x):
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    if cfg.n_codebooks == 1:
+        return x @ params["head"]
+    return torch.einsum("bsd,kdv->bskv", x, params["head"])
+
+
+def _positions_cos_sin(cfg: ArchConfig, seq_len: int, head_dim: int,
+                       device):
+    if cfg.pos_kind == "none":
+        return None, None
+    pos = torch.arange(seq_len, device=device)
+    return L.rope_cos_sin(pos, head_dim, cfg.rope_theta)
+
+
+def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, impl, chunk):
+    """One decoder block. Returns x."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.attn_kind == "gqa":
+        a, _ = L.gqa_forward(lp["attn"], h, cos, sin, cfg, impl=impl,
+                             window=cfg.sliding_window, chunk=chunk)
+        x = x + a
+    elif cfg.attn_kind == "hybrid":
+        a, _ = L.hybrid_forward(lp["mixer"], h, cos, sin, cfg, impl=impl,
+                                chunk=chunk)
+        x = x + a
+    else:                                           # pure SSM (mamba2)
+        return x + L.ssm_forward(lp["ssm"], h, cfg, impl=impl)
+    if cfg.d_ff:
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind)
+    return x
+
+
+def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024):
+    """Full-sequence forward. Returns (logits, aux) with aux empty (no MoE
+    in this port yet)."""
+    L.check_supported(cfg)
+    x = _embed_inputs(params, cfg, inputs)
+    cos, sin = _positions_cos_sin(cfg, x.shape[1], cfg.head_dim, x.device)
+    for lp in params["blocks"]:
+        x = block_forward(lp, x, cos, sin, cfg, impl=impl, chunk=chunk)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return _logits(params, cfg, x), {}
+
+
+# ---------------------------------------------------------------------------
+# decode (single-token serve step)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Per-layer cache, stacked on a leading layer axis.
+
+    Sliding-window archs get a ring buffer of ``window`` entries; SSM archs
+    carry O(1) state (fp32 whatever ``dtype``)."""
+    L.check_supported(cfg)
+    device = default_device(device)
+    n = cfg.n_layers
+    c = {}
+    if cfg.attn_kind in ("gqa", "hybrid"):
+        size = max_len
+        if cfg.sliding_window is not None:
+            size = min(max_len, cfg.sliding_window)
+        hkv, hd = cfg.n_kv_heads, cfg.head_dim
+        c["k"] = torch.zeros((n, batch, size, hkv, hd), dtype=dtype,
+                             device=device)
+        c["v"] = torch.zeros((n, batch, size, hkv, hd), dtype=dtype,
+                             device=device)
+    if cfg.attn_kind in ("none", "hybrid"):
+        s = cfg.ssm
+        _, nh, conv_dim = L.ssm_dims(cfg)
+        c["ssm"] = torch.zeros((n, batch, nh, s.head_dim, s.d_state),
+                               dtype=torch.float32, device=device)
+        c["conv"] = torch.zeros((n, batch, s.d_conv - 1, conv_dim),
+                                dtype=dtype, device=device)
+    return c
+
+
+def _store(cache, name: str, layer: int, value) -> None:
+    """Write one layer's new state into the stacked cache in place.  A
+    state whose type is wider than the cache's (the fp32 conv window over
+    a bf16 cache) widens the whole stacked entry once, as the reference's
+    scan outputs do."""
+    if cache[name].dtype != value.dtype:
+        cache[name] = cache[name].to(
+            torch.promote_types(cache[name].dtype, value.dtype))
+    cache[name][layer].copy_(value)
+
+
+def _ring(cfg: ArchConfig, size: int, length: int):
+    """(write_idx, valid_len) for full or ring-buffer caches."""
+    if cfg.sliding_window is not None:
+        return length % size, min(length + 1, size)
+    return length, length + 1
+
+
+def block_decode(lp, x, cache, layer: int, length: int, cos, sin,
+                 cfg: ArchConfig):
+    """One block of one decode step; updates ``cache`` (the stacked dict)
+    at ``layer`` in place.  Returns x."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.attn_kind == "gqa":
+        widx, valid = _ring(cfg, cache["k"].shape[2], length)
+        a, _, _ = L.gqa_decode(lp["attn"], h, cache["k"][layer],
+                               cache["v"][layer], widx, valid, cos, sin, cfg)
+        x = x + a
+    elif cfg.attn_kind == "hybrid":
+        widx, valid = _ring(cfg, cache["k"].shape[2], length)
+        sub = {name: cache[name][layer] for name in ("k", "v", "ssm", "conv")}
+        a, sub = L.hybrid_decode(lp["mixer"], h, sub, widx, valid, cos, sin,
+                                 cfg)
+        _store(cache, "ssm", layer, sub["ssm"])
+        _store(cache, "conv", layer, sub["conv"])
+        x = x + a
+    else:
+        y, st, conv = L.ssm_decode(lp["ssm"], h, cache["ssm"][layer],
+                                   cache["conv"][layer], cfg)
+        _store(cache, "ssm", layer, st)
+        _store(cache, "conv", layer, conv)
+        return x + y
+    if cfg.d_ff:
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind)
+    return x
+
+
+def decode_step(params, cfg: ArchConfig, cache, inputs):
+    """One serve step: new token at position ``inputs['length']`` (an int).
+
+    inputs: tokens (B,1) or (B,1,K); length.  Returns (logits, cache) —
+    the same cache dict, updated in place."""
+    x = _embed_inputs(params, cfg, inputs)
+    length = int(inputs["length"])
+    if cfg.pos_kind == "rope":
+        pos = torch.tensor([length], device=x.device)
+        cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+        cos, sin = cos[None], sin[None]             # (1,1,hd/2)
+    else:
+        cos = sin = None
+    for i, lp in enumerate(params["blocks"]):
+        x = block_decode(lp, x, cache, i, length, cos, sin, cfg)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return _logits(params, cfg, x), cache

@@ -1,0 +1,283 @@
+"""Serving substrate in PyTorch: prefill-with-cache, the decode step and the
+batched server — the counterpart of ``repro.serve.engine``.
+
+``prefill_with_cache`` runs the full-sequence forward while capturing the
+per-layer caches in exactly the layout ``transformer.init_cache``
+allocates (KV heaps, SSM states, sliding-window ring buffers), so the
+prefill→decode handoff is consistent with incremental decoding.
+
+:class:`BatchServer` is the paper's "serve a small model with batched
+requests" driver: requests queue up, are bucketed into waves of equal
+prompt length, prefilled together, and decoded in lockstep, one token for
+every request of the wave each step, greedy over the real vocabulary.
+
+Two routing points differ from the reference, both within what it offers,
+and together they put both Hopper kernels on the serving path:
+
+* :class:`BatchServer` passes an ``impl`` to its prefill, ``"kernel"`` by
+  default (the reference's ``make_prefill_fn`` takes ``impl``, but its
+  server fixes ``"dense"``), so attention runs the flash kernel;
+* :func:`_block_prefill` passes ``impl`` on to ``ssm_forward`` (the
+  reference leaves the SSM on its ``"jnp"`` scan), so ``"kernel"`` runs
+  the SSD chunk kernel.  Both scans compute the same function.
+
+On a CPU tensor ``"kernel"`` takes the kernels' plain versions.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+# ---------------------------------------------------------------------------
+# prefill with cache capture
+# ---------------------------------------------------------------------------
+
+
+def _ring_scatter(kv, window: int):
+    """Last-`window` kv entries, ring-layout (slot = pos % window)."""
+    b, s, hkv, hd = kv.shape
+    if s <= window:
+        pad = torch.zeros((b, window - s, hkv, hd), dtype=kv.dtype,
+                          device=kv.device)
+        return torch.cat([kv, pad], dim=1)
+    tail = kv[:, s - window:]                       # positions s-w .. s-1
+    slots = torch.arange(s - window, s, device=kv.device) % window
+    out = torch.zeros((b, window, hkv, hd), dtype=kv.dtype, device=kv.device)
+    out[:, slots] = tail
+    return out
+
+
+def _pad_seq(x, max_len: int):
+    s = x.shape[1]
+    if s >= max_len:
+        return x[:, :max_len]
+    pad = torch.zeros((x.shape[0], max_len - s, *x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def _pad_cache(kv, size: int, window):
+    if window is not None and kv.shape[1] > size:
+        return _ring_scatter(kv, size)
+    return _pad_seq(kv, size)
+
+
+def _block_prefill(lp, x, cos, sin, cfg: ArchConfig, max_len: int,
+                   cache_dtype, *, impl, chunk):
+    """block_forward + cache capture. Returns (x, cache_entry)."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    entry: Dict[str, Any] = {}
+    size = max_len if cfg.sliding_window is None else min(
+        max_len, cfg.sliding_window)
+    if cfg.attn_kind == "gqa":
+        a, (k, v) = L.gqa_forward(lp["attn"], h, cos, sin, cfg, impl=impl,
+                                  window=cfg.sliding_window, chunk=chunk)
+        x = x + a
+        entry["k"] = _pad_cache(k.to(cache_dtype), size, cfg.sliding_window)
+        entry["v"] = _pad_cache(v.to(cache_dtype), size, cfg.sliding_window)
+    elif cfg.attn_kind == "hybrid":
+        a, (k, v) = L.gqa_forward(lp["mixer"]["attn"], h, cos, sin, cfg,
+                                  impl=impl, window=cfg.sliding_window,
+                                  chunk=chunk)
+        m, (ssm_state, conv_state) = L.ssm_forward(
+            lp["mixer"]["ssm"], h, cfg, return_state=True, impl=impl)
+        y = 0.5 * (L.rms_norm(a, lp["mixer"]["attn_norm"], cfg.norm_eps)
+                   + L.rms_norm(m, lp["mixer"]["ssm_norm_out"],
+                                cfg.norm_eps))
+        x = x + y
+        entry["k"] = _pad_cache(k.to(cache_dtype), size, cfg.sliding_window)
+        entry["v"] = _pad_cache(v.to(cache_dtype), size, cfg.sliding_window)
+        entry["ssm"] = ssm_state
+        entry["conv"] = conv_state
+    else:                                            # pure SSM
+        y, (ssm_state, conv_state) = L.ssm_forward(
+            lp["ssm"], h, cfg, return_state=True, impl=impl)
+        x = x + y
+        entry["ssm"] = ssm_state
+        entry["conv"] = conv_state
+    if cfg.d_ff:
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind)
+    return x, entry
+
+
+def prefill_with_cache(params, cfg: ArchConfig, inputs, max_len: int, *,
+                       impl="dense", chunk=1024, cache_dtype=torch.bfloat16):
+    """Returns (logits (B,S,V...), cache) — cache layout == init_cache,
+    with the SSM and conv states in the activations' type (fp32), as in the
+    reference."""
+    L.check_supported(cfg)
+    x = T._embed_inputs(params, cfg, inputs)
+    cos, sin = T._positions_cos_sin(cfg, x.shape[1], cfg.head_dim, x.device)
+    entries = []
+    for lp in params["blocks"]:
+        x, entry = _block_prefill(lp, x, cos, sin, cfg, max_len, cache_dtype,
+                                  impl=impl, chunk=chunk)
+        entries.append(entry)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = T._logits(params, cfg, x)
+    cache = {name: torch.stack([e[name] for e in entries])
+             for name in entries[0]}
+    return logits, cache
+
+
+def make_prefill_fn(cfg: ArchConfig, max_len: int, *, impl="dense",
+                    chunk=1024, cache_dtype=torch.bfloat16):
+    @torch.inference_mode()
+    def prefill(params, inputs):
+        return prefill_with_cache(params, cfg, inputs, max_len, impl=impl,
+                                  chunk=chunk, cache_dtype=cache_dtype)
+    return prefill
+
+
+def make_decode_fn(cfg: ArchConfig):
+    @torch.inference_mode()
+    def decode(params, cache, inputs):
+        return T.decode_step(params, cfg, cache, inputs)
+    return decode
+
+
+# ---------------------------------------------------------------------------
+# batched serving
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Request:
+    request_id: str
+    prompt: np.ndarray                      # (S,) int32 token ids
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    result_tokens: List[int] = field(default_factory=list)
+    done: threading.Event = field(default_factory=threading.Event)
+    t_submit: float = field(default_factory=time.monotonic)
+    t_first_token: Optional[float] = None
+    t_done: Optional[float] = None
+
+
+class BatchServer:
+    """Slot-based batched decoder (waves of equal prompt length decode in
+    lockstep), on ``cuda:0`` unless ``device`` names another device.
+    Decoding is greedy (the reference's server ignores
+    ``Request.temperature`` too).
+
+    ``impl`` picks the prefill's attention and SSD scan (``"kernel"`` by
+    default: the Hopper kernels on the card).  ``waves`` records, for each
+    wave, its batch, prompt length, the seconds from the prefill call to
+    the first tokens on the host, and the seconds of each decode step
+    (each ends when its tokens reach the host)."""
+
+    def __init__(self, params, cfg: ArchConfig, *, n_slots: int = 4,
+                 max_len: int = 512, impl: str = "kernel", device=None):
+        L.check_supported(cfg)
+        if impl not in L.IMPLS:
+            raise ValueError(f"impl must be one of {L.IMPLS}, got {impl!r}")
+        self.device = T.default_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params lie on {params['embed'].device}, the "
+                             f"server runs on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.impl = impl
+        self._prefill1 = make_prefill_fn(cfg, max_len, impl=impl)
+        self._decode = make_decode_fn(cfg)
+        self._queue: "queue.Queue[Request]" = queue.Queue()
+        self.metrics: Dict[str, float] = {"decoded_tokens": 0,
+                                          "completed": 0}
+        self.waves: List[Dict[str, Any]] = []
+
+    def submit(self, req: Request) -> Request:
+        self._queue.put(req)
+        return req
+
+    def run(self, *, max_requests: Optional[int] = None,
+            idle_timeout_s: float = 2.0) -> List[Request]:
+        """Serve until the queue stays empty for ``idle_timeout_s`` (or
+        ``max_requests`` completed). One request per slot wave; waves of up
+        to n_slots requests decode in lockstep."""
+        completed: List[Request] = []
+        pending: List[Request] = []
+        while True:
+            deadline = time.monotonic() + idle_timeout_s
+            while len(pending) < self.n_slots and time.monotonic() < deadline:
+                try:
+                    pending.append(self._queue.get(timeout=0.05))
+                except queue.Empty:
+                    if pending:
+                        break
+            if not pending:
+                return completed
+            # waves are bucketed by exact prompt length: a shared static
+            # prefill shape with left-padding would corrupt RoPE positions
+            # and causal masks for the shorter prompts.
+            plen = len(pending[0].prompt)
+            wave = [r for r in pending if len(r.prompt) == plen][
+                :self.n_slots]
+            pending = [r for r in pending if r not in wave]
+            self._serve_wave(wave)
+            completed.extend(wave)
+            self.metrics["completed"] += len(wave)
+            if max_requests and len(completed) >= max_requests:
+                return completed
+
+    def _argmax(self, last) -> np.ndarray:
+        return torch.argmax(last[..., :self.cfg.vocab_size], dim=-1).to(
+            torch.int32).cpu().numpy()
+
+    def _serve_wave(self, wave: List[Request]) -> None:
+        cfg = self.cfg
+        s_max = len(wave[0].prompt)                   # bucketed: equal lens
+        b = len(wave)
+        toks = np.zeros((b, s_max), np.int64)
+        for i, r in enumerate(wave):
+            toks[i, :] = r.prompt
+        if cfg.n_codebooks > 1:
+            toks = np.repeat(toks[..., None], cfg.n_codebooks, axis=-1)
+        inputs = {"tokens": torch.from_numpy(toks).to(self.device)}
+        t0 = time.monotonic()
+        logits, cache = self._prefill1(self.params, inputs)
+        last = logits[:, -1] if cfg.n_codebooks == 1 else logits[:, -1, 0]
+        next_tok = self._argmax(last)                 # waits for the card
+        now = time.monotonic()
+        stats = {"batch": b, "prompt_len": s_max, "prefill_s": now - t0,
+                 "decode_s": []}
+        self.waves.append(stats)
+        del logits, last
+        for i, r in enumerate(wave):
+            r.t_first_token = now
+            r.result_tokens.append(int(next_tok[i]))
+        length = s_max
+        n_steps = max(r.max_new_tokens for r in wave)
+        for _ in range(n_steps - 1):
+            t = next_tok[:, None].astype(np.int64)
+            if cfg.n_codebooks > 1:
+                t = np.repeat(t[..., None], cfg.n_codebooks, axis=-1)
+            t0 = time.monotonic()
+            dinp = {"tokens": torch.from_numpy(t).to(self.device),
+                    "length": length}
+            logits, cache = self._decode(self.params, cache, dinp)
+            lg = logits[:, 0] if cfg.n_codebooks == 1 else logits[:, 0, 0]
+            next_tok = self._argmax(lg)
+            stats["decode_s"].append(time.monotonic() - t0)
+            self.metrics["decoded_tokens"] += b
+            length += 1
+            for i, r in enumerate(wave):
+                if len(r.result_tokens) < r.max_new_tokens:
+                    r.result_tokens.append(int(next_tok[i]))
+        now = time.monotonic()
+        for r in wave:
+            r.t_done = now
+            r.done.set()

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on an sm_90 card, against its plain version on
-the same inputs.  Imports torch only, so it runs on a machine without JAX:
+"""The port's CUDA kernels on an sm_90 card, against their plain versions
+on the same inputs.  Imports torch only, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -9,9 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kmeans as tk
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd as tssd
 from repro_torch.ml import KMeans, MiniAppGenerator
+from repro_torch.models import transformer as TT
+from repro_torch.serve import BatchServer, Request
 
 PRECISIONS = ("fp32", "bf16", "int8")
 CASES = [(257, 7, 3), (2500, 32, 25), (513, 128, 128)]
@@ -88,3 +93,115 @@ def test_cuda_wrapper_rejects_oversized_widths(sm90_device):
     x = torch.zeros((16, 512), device=sm90_device)
     with pytest.raises(ValueError, match="shared memory"):
         ops.kmeans_assign(x, x[:128])
+
+
+# (b, s, h, hkv, d, causal, window): tests/test_kernels.py's cases, a ragged
+# tile with a window, the widest head_dim, hymba's heads
+FLASH_CASES = [(1, 128, 2, 2, 64, True, None), (2, 200, 2, 2, 64, True, 64),
+               (1, 384, 8, 1, 32, True, None), (1, 128, 4, 4, 128, False, None),
+               (1, 96, 2, 2, 16, True, None), (1, 300, 4, 2, 192, True, 100),
+               (2, 520, 25, 5, 64, True, 256)]
+# the kernel's online softmax against the plain version's, both fp32 from
+# the same inputs, rounded once to the output type: fp32 within
+# tests/test_kernels.py's 2e-5; bf16 within one rounding (2^-7 of the
+# value) plus 1e-3 of the largest value for the sums' order near a
+# rounding boundary
+
+
+def _flash_tol(want):
+    if want.dtype == torch.float32:
+        return dict(atol=2e-5, rtol=2e-5)
+    return dict(atol=1e-3 * float(want.float().abs().max()), rtol=2.0 ** -7)
+
+
+def _randn(g, shape, device, dtype=torch.float32):
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_matches_plain(sm90_device, case, dtype):
+    b, s, h, hkv, d, causal, window = case
+    g = torch.Generator(device=sm90_device).manual_seed(s + d)
+    q = _randn(g, (b, s, h, d), sm90_device, dtype)
+    k = _randn(g, (b, s, hkv, d), sm90_device, dtype)
+    v = _randn(g, (b, s, hkv, d), sm90_device, dtype)
+    before = tfa.LAUNCHES["flash_attention"].count
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert tfa.LAUNCHES["flash_attention"].count == before + 1
+    want = tfa.plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), **_flash_tol(want))
+
+
+def test_cuda_flash_rejects_head_dim_over_256(sm90_device):
+    x = torch.zeros((1, 8, 2, 272), device=sm90_device)
+    before = tfa.LAUNCHES["flash_attention"].count
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(x, x, x)
+    assert tfa.LAUNCHES["flash_attention"].count == before
+
+
+# (b, s, nh, hd, g, ds, chunk): tests/test_kernels.py's cases, a ragged chunk
+SSD_CASES = [(1, 64, 2, 16, 1, 16, 16), (2, 128, 4, 32, 1, 16, 32),
+             (1, 256, 8, 64, 2, 32, 64), (1, 256, 24, 64, 1, 128, 64),
+             (2, 128, 4, 32, 4, 16, 128), (2, 400, 4, 64, 1, 16, 200),
+             (1, 512, 24, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_cuda_ssd_matches_plain(sm90_device, case):
+    """The chunk kernel's (y, st, cum) and the full scan against the plain
+    version within 1e-3 (tests/test_kernels.py's scan tolerance)."""
+    b, s, nh, hd, gr, ds, chunk = case
+    g = torch.Generator(device=sm90_device).manual_seed(s + ds)
+    x = _randn(g, (b, s, nh, hd), sm90_device)
+    dt = torch.rand((b, s, nh), generator=g, device=sm90_device) * 0.1 + 1e-3
+    A = -(torch.rand((nh,), generator=g, device=sm90_device) * 1.5 + 0.5)
+    B = _randn(g, (b, s, gr, ds), sm90_device)
+    C = _randn(g, (b, s, gr, ds), sm90_device)
+    D = _randn(g, (nh,), sm90_device)
+    before = tssd.LAUNCHES["ssd_chunk_scan"].count
+    y, fin = ops.ssd_chunk_scan(x, dt, A, B, C, D, chunk=chunk)
+    assert tssd.LAUNCHES["ssd_chunk_scan"].count == before + 1
+    parts = tssd.chunk_launch(x, dt, A, B, C, D, chunk)
+    want_parts = tssd.chunk_plain(x, dt, A, B, C, D, chunk)
+    want_y, want_fin = tssd.inter_chunk(*want_parts, C, chunk)
+    torch.cuda.synchronize()
+    for got, want in zip((*parts, y, fin), (*want_parts, want_y, want_fin)):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def test_cuda_batch_server_goes_through_both_kernels(sm90_device):
+    """hymba at reduced width on the card: one wave of 2 prompts of 64
+    tokens (past the 16-token window) launches each kernel once per layer,
+    and the tokens equal the server's on the host with the same weights."""
+    cfg = get_arch("hymba-1.5b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=1)
+    host_params = {k: v for k, v in params.items() if k != "blocks"}
+    host_params = {k: v.cpu() for k, v in host_params.items()}
+    host_params["blocks"] = [
+        {k: ({kk: (vv.cpu() if isinstance(vv, torch.Tensor) else
+                   {a: t.cpu() for a, t in vv.items()})
+              for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+         for k, v in blk.items()} for blk in params["blocks"]]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, 64).astype(np.int32)
+               for _ in range(2)]
+    results = {}
+    for name, p, dev in (("card", params, sm90_device),
+                         ("host", host_params, "cpu")):
+        server = BatchServer(p, cfg, n_slots=2, max_len=72, device=dev)
+        for i, pr in enumerate(prompts):
+            server.submit(Request(request_id=f"r{i}", prompt=pr,
+                                  max_new_tokens=5))
+        f0 = tfa.LAUNCHES["flash_attention"].count
+        s0 = tssd.LAUNCHES["ssd_chunk_scan"].count
+        done = server.run(max_requests=2, idle_timeout_s=0.5)
+        launches = (tfa.LAUNCHES["flash_attention"].count - f0,
+                    tssd.LAUNCHES["ssd_chunk_scan"].count - s0)
+        results[name] = ([r.result_tokens for r in done], launches)
+    assert results["card"][1] == (cfg.n_layers, cfg.n_layers)
+    assert results["host"][1] == (0, 0)
+    assert results["card"][0] == results["host"][0]
