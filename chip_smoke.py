@@ -55,8 +55,16 @@ SEED = 0
 
 # flash attention: (b, sq, sk, h, hkv, d, causal, window).  The reference's
 # cases (tests/test_kernels.py:25-34), hymba-1.5b's two prefill waves,
-# internlm2-1.8b's heads at 4,096 tokens, and a head_dim of 192.
+# internlm2-1.8b's heads at 4,096 tokens, a head_dim of 192; then the edges
+# of the two designs' tiles: Sq != Sk without the causal mask (k padding),
+# fully masked rows (window 1, Sq 8 > Sk 4: rows 4 and up give 0), a
+# sequence that no tile size divides, and a head_dim of 256.
 FLASH_CASES = [
+    (1, 100, 300, 2, 1, 64, False, None),
+    (2, 300, 77, 4, 2, 128, False, None),
+    (1, 8, 4, 2, 2, 16, False, 1),
+    (1, 333, 333, 4, 2, 64, True, None),
+    (1, 256, 256, 2, 1, 256, True, None),
     (1, 128, 128, 2, 2, 64, True, None),
     (2, 256, 256, 4, 2, 64, True, None),
     (1, 384, 384, 8, 1, 32, True, None),
@@ -479,10 +487,13 @@ def ssd_bound_ms(case, dtype):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def sdpa_call(torch, q, k, v, causal, window):
-    """One ``scaled_dot_product_attention`` call on the same function (the
-    library yardstick; the port never calls it), inputs laid out for it
-    outside the call."""
+def sdpa_forms(torch, q, k, v, causal, window):
+    """The library yardstick (the port never calls it): each
+    ``scaled_dot_product_attention`` form that computes the same function,
+    inputs laid out for it outside the call.  The window as a boolean mask
+    always; where the window covers every prompt position (or there is
+    none), also the mask-free ``is_causal=True`` form, which the flash
+    backend takes."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sq, sk = q.shape[1], k.shape[1]
@@ -493,8 +504,40 @@ def sdpa_call(torch, q, k, v, causal, window):
         keep = keep & (kpos <= qpos)
     if window is not None:
         keep = keep & (kpos > qpos - window)
-    return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=keep, enable_gqa=True)
+    forms = {"mask": lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, enable_gqa=True)}
+    if causal and sq == sk and (window is None or window >= sq):
+        forms["is_causal"] = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    return forms
+
+
+def time_library(torch, q, k, v, causal, window, iters):
+    """Every (backend, form) of the library call that accepts the inputs,
+    timed as :func:`time_ms` times the kernel, with the backend chosen
+    outside the timed loop.  Returns the fastest as (ms, "BACKEND:form",
+    its output in the reference's layout) and every time by name."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times, best = {}, None
+    for form, fn in sdpa_forms(torch, q, k, v, causal, window).items():
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            name = backend.name
+            with sdpa_kernel(backend):
+                try:
+                    out = fn()
+                    torch.cuda.synchronize()
+                except RuntimeError:        # the backend refuses the inputs
+                    continue
+                ms = time_ms(torch, fn, iters)
+            times[f"{name}:{form}"] = ms
+            if best is None or ms < best[0]:
+                best = (ms, f"{name}:{form}", out.transpose(1, 2))
+            del out
+    if best is None:
+        raise AssertionError("no SDPA backend accepted the inputs")
+    return best, times
 
 
 def time_attention_ssd(torch, fa, ssd, device):
@@ -505,22 +548,23 @@ def time_attention_ssd(torch, fa, ssd, device):
         causal, window = case[6], case[7]
         for dtype in ("fp32", "bf16"):
             q, k, v = flash_inputs(torch, case, dtype, device, 11)
-            lib = sdpa_call(torch, q, k, v, causal, window)
-            lib_out = lib().transpose(1, 2)
             ker_out = fa.launch(q, k, v, causal=causal, window=window)
+            (lib_ms, lib_name, lib_out), lib_times = time_library(
+                torch, q, k, v, causal, window, 5)
             row = {"kernel": "flash_attention", "case": list(case),
                    "dtype": dtype,
                    "kernel_ms": time_ms(torch, lambda: fa.launch(
                        q, k, v, causal=causal, window=window), 5),
                    "plain_ms": time_ms(torch, lambda: fa.plain(
                        q, k, v, causal=causal, window=window), 1),
-                   "library_ms": time_ms(torch, lib, 5),
+                   "library_ms": lib_ms, "library_backend": lib_name,
+                   "library_ms_by_backend": lib_times,
                    "library_max_abs_diff": float(
                        (lib_out.float() - ker_out.float()).abs().max())}
             row["bound_ms"], row["bound_by"] = flash_bound_ms(case, dtype)
             emit("timing", **row)
             rows.append(row)
-            del q, k, v, lib, lib_out, ker_out
+            del q, k, v, lib_out, ker_out
     for case in SSD_MAIN:
         chunk = case[-1]
         for dtype in ("fp32", "bf16"):
@@ -805,7 +849,8 @@ def main() -> int:
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"]})
+            "library_ms": main_row["library_ms"],
+            "library_backend": main_row.get("library_backend")})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,13 @@ kernel, its wrapper and its plain PyTorch version.
 Replaces the Pallas TPU kernel of ``repro/kernels/flash_attention.py``
 (``_flash_kernel`` behind ``pl.pallas_call`` at :120, entry point
 ``flash_attention`` at :96).  The CUDA source is
-``csrc/flash_attention.cu``; its header note says what bounds the kernel on
-an H100 (4·D flops per unmasked (query, key) pair, an operations bound at
-the serving path's shapes) and what the design does about it.
+``csrc/flash_attention.cu``, with one design per input type: fp32 on the
+FMA pipes (register micro-tiles fed by a cp.async ring), bf16 on the tensor
+cores (wgmma fed by a TMA ring, p carried as a bf16 hi/lo pair so the p·v
+product keeps the reference's fp32 p).  Its header note says what bounds
+the kernel on an H100 (4·D flops per unmasked (query, key) pair, an
+operations bound at the serving path's shapes) and what each design does
+about it.
 
 :func:`flash_attention` takes q (B,Sq,H,D) and k/v (B,Sk,Hkv,D) in the
 reference's layout, fp32 or bf16, H a multiple of Hkv and D a multiple of
@@ -113,7 +117,7 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_smem_bytes.argtypes = [i]
+    lib.flash_smem_bytes.argtypes = [i, i]
     lib.flash_smem_bytes.restype = ctypes.c_size_t
     lib.flash_error_string.argtypes = [i]
     lib.flash_error_string.restype = ctypes.c_char_p
@@ -144,7 +148,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)} exceed "
                          f"the kernel's 32-bit counts")
     lib = _library()
-    smem = lib.flash_smem_bytes(d)
+    smem = lib.flash_smem_bytes(_DTYPE_CODE[q.dtype], d)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"head_dim {d} needs {smem} B of shared memory per "
                          f"block; an sm_90 block has at most "

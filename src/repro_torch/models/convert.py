@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import default_device
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -30,10 +31,12 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def load_reference_params(tree, cfg: ArchConfig, device="cpu"):
+def load_reference_params(tree, cfg: ArchConfig, device=None):
     """The reference's parameter tree (numpy leaves, blocks stacked on
-    axis 0) as the port's parameters (blocks a list of per-layer dicts)."""
+    axis 0) as the port's parameters (blocks a list of per-layer dicts),
+    on ``cuda:0`` unless ``device`` names another."""
     L.check_supported(cfg)
+    device = default_device(device)
     params = {k: _map(v, lambda a: _tensor(a, device))
               for k, v in tree.items() if k != "blocks"}
     stacked = _map(tree["blocks"], lambda a: _tensor(a, device))
@@ -42,7 +45,9 @@ def load_reference_params(tree, cfg: ArchConfig, device="cpu"):
     return params
 
 
-def load_reference_cache(tree, device="cpu"):
+def load_reference_cache(tree, device=None):
     """The reference's cache (a dict of arrays stacked on the layer axis)
-    as the port's, in the same layout."""
+    as the port's, in the same layout, on ``cuda:0`` unless ``device``
+    names another."""
+    device = default_device(device)
     return {k: _tensor(v, device) for k, v in tree.items()}

@@ -95,12 +95,26 @@ def test_cuda_wrapper_rejects_oversized_widths(sm90_device):
         ops.kmeans_assign(x, x[:128])
 
 
-# (b, s, h, hkv, d, causal, window): tests/test_kernels.py's cases, a ragged
-# tile with a window, the widest head_dim, hymba's heads
-FLASH_CASES = [(1, 128, 2, 2, 64, True, None), (2, 200, 2, 2, 64, True, 64),
-               (1, 384, 8, 1, 32, True, None), (1, 128, 4, 4, 128, False, None),
-               (1, 96, 2, 2, 16, True, None), (1, 300, 4, 2, 192, True, 100),
-               (2, 520, 25, 5, 64, True, 256)]
+# (b, sq, sk, h, hkv, d, causal, window): tests/test_kernels.py's cases, a
+# ragged tile with a window, the widest head_dim, hymba's heads; then the
+# edges of the two designs' tiles: Sq != Sk without the causal mask (k
+# padding), a sequence that no tile size (64, 96, 128) divides, every head
+# width from 16 to 256, and hymba's GQA ratio 25/5
+FLASH_CASES = [(1, 128, 128, 2, 2, 64, True, None),
+               (2, 200, 200, 2, 2, 64, True, 64),
+               (1, 384, 384, 8, 1, 32, True, None),
+               (1, 128, 128, 4, 4, 128, False, None),
+               (1, 96, 96, 2, 2, 16, True, None),
+               (1, 300, 300, 4, 2, 192, True, 100),
+               (2, 520, 520, 25, 5, 64, True, 256),
+               (1, 100, 300, 2, 1, 64, False, None),
+               (2, 300, 77, 4, 2, 128, False, None),
+               (1, 333, 333, 4, 2, 64, True, None),
+               (1, 200, 200, 2, 2, 16, True, None),
+               (1, 200, 200, 2, 2, 32, False, 50),
+               (1, 200, 200, 2, 2, 256, False, None),
+               (1, 333, 333, 25, 5, 256, True, 128),
+               (2, 257, 257, 25, 5, 128, True, None)]
 # the kernel's online softmax against the plain version's, both fp32 from
 # the same inputs, rounded once to the output type: fp32 within
 # tests/test_kernels.py's 2e-5; bf16 within one rounding (2^-7 of the
@@ -121,11 +135,11 @@ def _randn(g, shape, device, dtype=torch.float32):
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_matches_plain(sm90_device, case, dtype):
-    b, s, h, hkv, d, causal, window = case
-    g = torch.Generator(device=sm90_device).manual_seed(s + d)
-    q = _randn(g, (b, s, h, d), sm90_device, dtype)
-    k = _randn(g, (b, s, hkv, d), sm90_device, dtype)
-    v = _randn(g, (b, s, hkv, d), sm90_device, dtype)
+    b, sq, sk, h, hkv, d, causal, window = case
+    g = torch.Generator(device=sm90_device).manual_seed(sq + sk + d)
+    q = _randn(g, (b, sq, h, d), sm90_device, dtype)
+    k = _randn(g, (b, sk, hkv, d), sm90_device, dtype)
+    v = _randn(g, (b, sk, hkv, d), sm90_device, dtype)
     before = tfa.LAUNCHES["flash_attention"].count
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert tfa.LAUNCHES["flash_attention"].count == before + 1
@@ -133,6 +147,34 @@ def test_cuda_flash_matches_plain(sm90_device, case, dtype):
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), want.float(), **_flash_tol(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_fully_masked_rows_give_zero(sm90_device, dtype):
+    """tests/test_torch_attention.py's case on the card: under a one-key
+    window, query rows 4 and up of 8 see none of the 4 keys."""
+    g = torch.Generator(device=sm90_device).manual_seed(1)
+    q = _randn(g, (1, 8, 2, 16), sm90_device, dtype)
+    k = _randn(g, (1, 4, 2, 16), sm90_device, dtype)
+    v = _randn(g, (1, 4, 2, 16), sm90_device, dtype)
+    out = ops.flash_attention(q, k, v, causal=False, window=1)
+    want = tfa.plain(q, k, v, causal=False, window=1)
+    torch.cuda.synchronize()
+    assert not out[:, 4:].any()
+    torch.testing.assert_close(out.float(), want.float(), **_flash_tol(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_bit_identical_across_launches(sm90_device, dtype):
+    """No atomics: the same inputs give the same bits on every launch."""
+    g = torch.Generator(device=sm90_device).manual_seed(7)
+    q = _randn(g, (2, 1000, 25, 64), sm90_device, dtype)
+    k = _randn(g, (2, 1000, 5, 64), sm90_device, dtype)
+    v = _randn(g, (2, 1000, 5, 64), sm90_device, dtype)
+    runs = [ops.flash_attention(q, k, v, causal=True, window=300)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
 def test_cuda_flash_rejects_head_dim_over_256(sm90_device):

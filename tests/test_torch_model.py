@@ -90,12 +90,26 @@ def test_init_params_default_device_needs_a_card(monkeypatch):
         TT.init_params(tconfigs.get_arch("hymba-1.5b").reduced())
 
 
+def test_load_reference_params_default_device_needs_a_card(monkeypatch):
+    """The carried weights go to the card unless the caller asks for the
+    host: with no card, the default raises ``default_device``'s error."""
+    cfg = get_arch("hymba-1.5b").reduced()
+    tree = jax.tree_util.tree_map(
+        np.asarray, JT.init_params(jax.random.key(0), cfg, jnp.float32))
+    tcfg = tconfigs.get_arch("hymba-1.5b").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.load_reference_params(tree, tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.load_reference_cache({"k": np.zeros((1, 2), np.float32)})
+
+
 def _carried(arch):
     cfg = get_arch(arch).reduced()
     jp = JT.init_params(jax.random.key(0), cfg, jnp.float32)
     tp = convert.load_reference_params(
         jax.tree_util.tree_map(np.asarray, jp), tconfigs.get_arch(arch)
-        .reduced())
+        .reduced(), device="cpu")
     return cfg, jp, tp
 
 

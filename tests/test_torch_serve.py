@@ -38,7 +38,7 @@ def _carried(arch):
     jp = JT.init_params(jax.random.key(0), cfg, jnp.float32)
     tcfg = tconfigs.get_arch(arch).reduced()
     tp = convert.load_reference_params(
-        jax.tree_util.tree_map(np.asarray, jp), tcfg)
+        jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
     return cfg, tcfg, jp, tp
 
 
@@ -106,7 +106,7 @@ def test_decode_from_the_reference_cache(arch):
     _, jc = jprefill(jp, cfg, {"tokens": jnp.asarray(toks[:, :S])},
                      max_len=S + 2)
     tc = convert.load_reference_cache(
-        jax.tree_util.tree_map(np.asarray, jc))
+        jax.tree_util.tree_map(np.asarray, jc), device="cpu")
     assert {k: str(v.dtype).split(".")[-1] for k, v in tc.items()} == \
         {k: str(v.dtype) for k, v in jc.items()}
     for i in range(2):
