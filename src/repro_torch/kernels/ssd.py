@@ -4,9 +4,11 @@ wrapper, its plain PyTorch version, and the recurrence across chunks.
 Replaces the Pallas TPU kernel of ``repro/kernels/ssd.py`` (``_ssd_kernel``
 behind ``pl.pallas_call`` at :92, entry point ``ssd_chunk_scan`` at :70).
 The CUDA source is ``csrc/ssd.cu``; its header note says what bounds the
-kernel on an H100 ((ds + hd)·q(q+1) flops for the causal pairs of a chunk
-plus 2q·ds·hd for its state, an operations bound at hymba-1.5b's widths)
-and what the design does about it.
+kernel on an H100 (ds·q(q+1) flops a chunk of each B/C group for ``C·Bᵀ``,
+hd·q(q+1) a chunk of each head for the product with x, plus 2q·ds·hd for
+its state: an operations bound at hymba-1.5b's widths) and what the design
+does about it: work items of 64 output rows, register micro-tiles fed by a
+cp.async ring, and the chunk state added during the y pass.
 
 For each (batch, head, chunk) the kernel — or, on a CPU tensor, its plain
 version :func:`chunk_plain` — computes ``cum = cumsum(dt·A)``, the chunk's
@@ -97,7 +99,7 @@ def chunk_plain(xh, dt, A, B_, C_, D, chunk: int):
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_smem_bytes.argtypes = [i, i]
+    lib.ssd_smem_bytes.argtypes = [i, i, i]
     lib.ssd_smem_bytes.restype = ctypes.c_size_t
     lib.ssd_error_string.argtypes = [i]
     lib.ssd_error_string.restype = ctypes.c_char_p
@@ -127,7 +129,7 @@ def chunk_launch(xh, dt, A, B_, C_, D, chunk: int):
         raise ValueError(f"shapes {tuple(xh.shape)}, {tuple(B_.shape)} exceed "
                          f"the kernel's 32-bit counts")
     lib = _library()
-    smem = lib.ssd_smem_bytes(hd, ds)
+    smem = lib.ssd_smem_bytes(_DTYPE_CODE[xh.dtype], hd, ds)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"head_dim {hd}, d_state {ds} need {smem} B of "
                          f"shared memory per block; an sm_90 block has at "

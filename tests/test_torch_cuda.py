@@ -185,25 +185,40 @@ def test_cuda_flash_rejects_head_dim_over_256(sm90_device):
     assert tfa.LAUNCHES["flash_attention"].count == before
 
 
-# (b, s, nh, hd, g, ds, chunk): tests/test_kernels.py's cases, a ragged chunk
+# (b, s, nh, hd, g, ds, chunk): tests/test_kernels.py's cases, a ragged
+# chunk, then the edges of the kernel's tiles: chunks that 64 does not
+# divide (200, 16), ds 4 and 256, hd 16, 30 (rows staged element by
+# element) and 256, 4 B/C groups of 8 heads, and hymba-1.5b's widths
 SSD_CASES = [(1, 64, 2, 16, 1, 16, 16), (2, 128, 4, 32, 1, 16, 32),
              (1, 256, 8, 64, 2, 32, 64), (1, 256, 24, 64, 1, 128, 64),
              (2, 128, 4, 32, 4, 16, 128), (2, 400, 4, 64, 1, 16, 200),
-             (1, 512, 24, 64, 1, 128, 256)]
+             (1, 512, 24, 64, 1, 128, 256), (1, 256, 4, 32, 1, 4, 128),
+             (1, 512, 2, 64, 1, 256, 256), (1, 256, 2, 256, 1, 256, 256),
+             (1, 400, 4, 30, 2, 4, 200), (1, 256, 8, 32, 4, 16, 64),
+             (2, 1024, 50, 64, 1, 16, 256)]
+HYMBA_SSD = (2, 1024, 50, 64, 1, 16, 256)
+
+
+def _ssd_inputs(case, device, dtype=torch.float32):
+    b, s, nh, hd, gr, ds, _ = case
+    g = torch.Generator(device=device).manual_seed(s + ds)
+    x = _randn(g, (b, s, nh, hd), device, dtype)
+    dt = torch.rand((b, s, nh), generator=g, device=device) * 0.1 + 1e-3
+    A = -(torch.rand((nh,), generator=g, device=device) * 1.5 + 0.5)
+    B = _randn(g, (b, s, gr, ds), device, dtype)
+    C = _randn(g, (b, s, gr, ds), device, dtype)
+    return x, dt, A, B, C, _randn(g, (nh,), device)
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
-def test_cuda_ssd_matches_plain(sm90_device, case):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_matches_plain(sm90_device, case, dtype):
     """The chunk kernel's (y, st, cum) and the full scan against the plain
-    version within 1e-3 (tests/test_kernels.py's scan tolerance)."""
-    b, s, nh, hd, gr, ds, chunk = case
-    g = torch.Generator(device=sm90_device).manual_seed(s + ds)
-    x = _randn(g, (b, s, nh, hd), sm90_device)
-    dt = torch.rand((b, s, nh), generator=g, device=sm90_device) * 0.1 + 1e-3
-    A = -(torch.rand((nh,), generator=g, device=sm90_device) * 1.5 + 0.5)
-    B = _randn(g, (b, s, gr, ds), sm90_device)
-    C = _randn(g, (b, s, gr, ds), sm90_device)
-    D = _randn(g, (nh,), sm90_device)
+    version within 1e-3 (tests/test_kernels.py's scan tolerance); y in bf16
+    within that file's bf16 tolerance of 5e-2, since kernel and plain may
+    round a sum to bf16 on either side of a tie."""
+    chunk = case[-1]
+    x, dt, A, B, C, D = _ssd_inputs(case, sm90_device, dtype)
     before = tssd.LAUNCHES["ssd_chunk_scan"].count
     y, fin = ops.ssd_chunk_scan(x, dt, A, B, C, D, chunk=chunk)
     assert tssd.LAUNCHES["ssd_chunk_scan"].count == before + 1
@@ -211,8 +226,24 @@ def test_cuda_ssd_matches_plain(sm90_device, case):
     want_parts = tssd.chunk_plain(x, dt, A, B, C, D, chunk)
     want_y, want_fin = tssd.inter_chunk(*want_parts, C, chunk)
     torch.cuda.synchronize()
+    assert parts[0].dtype == dtype and y.dtype == dtype
     for got, want in zip((*parts, y, fin), (*want_parts, want_y, want_fin)):
-        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+        tol = 5e-2 if got.dtype == torch.bfloat16 else 1e-3
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_bit_identical_across_launches(sm90_device, dtype):
+    """No atomics, and every work item of a chunk scans cum with the same
+    code: three launches at hymba's widths give the same bits."""
+    chunk = HYMBA_SSD[-1]
+    args = _ssd_inputs(HYMBA_SSD, sm90_device, dtype)
+    runs = [tssd.chunk_launch(*args, chunk) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
 
 
 def test_cuda_batch_server_goes_through_both_kernels(sm90_device):

@@ -26,6 +26,7 @@ SSD_CASES = [
     (1, 256, 24, 64, 1, 128, 64),
     (2, 128, 4, 32, 4, 16, 128),
     (1, 400, 4, 32, 2, 16, 200),      # a ragged chunk (not a power of two)
+    (1, 512, 5, 64, 1, 16, 256),      # hymba-1.5b's per-chunk widths
 ]
 
 
@@ -52,7 +53,11 @@ def test_ssd_plain_matches_reference_kernel_and_oracle(case):
     y, fin = ops.ssd_chunk_scan(*tin, chunk=chunk)
     assert tssd.LAUNCHES["ssd_chunk_scan"].count == before   # plain
     assert y.shape == tin[0].shape and fin.shape == fin_r.shape
-    for got, want in ((y, y_k), (fin, fin_k), (y, y_r), (fin, fin_r)):
+    # the Pallas kernel runs the same chunked algorithm: 2e-5
+    for got, want in ((y, y_k), (fin, fin_k)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+    for got, want in ((y, y_r), (fin, fin_r)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=1e-3, rtol=1e-3)
     if case[1] <= 256:
