@@ -42,9 +42,13 @@ PEAK_FLOPS = {"fp32": 67e12,      # CUDA-core fp32: the kernel's FMAs
 ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 PRECISIONS = ("fp32", "bf16", "int8")
 # (n, f, k): the paper's largest message, the kernel's headline shape,
-# a ragged tile with tiny widths, and the reference's widest test case
+# a ragged tile with tiny widths, the reference's widest test case, F and K
+# across the kernel's 32-padding, and a million rows of 7 features (no row
+# on a 16-byte boundary but every eighth)
 CHECK_SHAPES = [(10_000, 32, 25), (1_000_000, 32, 25), (257, 7, 3),
-                (513, 128, 128)]
+                (513, 128, 128), (10_000, 33, 33), (1_000_000, 7, 3)]
+# and x[1:] of these: a start address off the 16-byte grid
+CHECK_MISALIGNED = [(1_001, 7, 3)]
 TIMED_SHAPES = [(10_000, 32, 25), (1_000_000, 32, 25)]
 MAIN_SHAPE = (10_000, 32, 25)     # what one quickstart message gives
 # near-tie and distance tolerance, per row: 1e-5 of the expansion's
@@ -165,10 +169,13 @@ def bound_ms(n, f, k, precision, fused, point_bytes=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(torch, kk, n, f, k, precision, device):
-    """Both kernels against the plain version at one shape; returns the
-    worst dmin error of each form where the ids agree."""
+def check_kernel(torch, kk, n, f, k, precision, device, offset=0):
+    """Both kernels against the plain version at one shape (on ``x[offset:]``
+    of the points); returns the worst dmin error of each form where the ids
+    agree."""
     x, c = blobs(torch, n, f, k, device, SEED + n + f + k)
+    x = x[offset:]
+    n = x.shape[0]
     prep = kk.prepare(x, c, precision)
     runs = [kk.launch(prep, fused=True) for _ in range(3)]
     ids, dmin, sums, counts = runs[0]
@@ -203,8 +210,10 @@ def check_kernel(torch, kk, n, f, k, precision, device):
                              f"{precision}")
     # counts exact against the kernel's own ids (and the plain counts
     # when no id moved); sums against a float64 sum over the kernel's
-    # ids, within the fp32 bound of the kernel's order of addition:
-    # (rows per block + blocks) · 2^-24 · Σ|x|
+    # ids, within the fp32 bound of the kernel's longest chain of
+    # additions: chain · 2^-24 · Σ|x|, where a block's accumulator takes at
+    # most ceil(tiles / grid) tiles of `rows` rows, then the block adds its
+    # warps' copies and the second launch the grid's partials
     want_counts = torch.bincount(ids_l, minlength=k).float()
     if not torch.equal(counts, want_counts):
         raise AssertionError(f"counts wrong at {(n, f, k)} {precision}")
@@ -214,15 +223,17 @@ def check_kernel(torch, kk, n, f, k, precision, device):
     want = torch.zeros((k, f), dtype=torch.float64, device=device
                        ).index_add_(0, ids_l, x64)
     abs_sums = torch.zeros_like(want).index_add_(0, ids_l, x64.abs())
-    nblocks = -(-n // 256)
-    sum_tol = (256 + nblocks) * 2.0 ** -24 * abs_sums + 1e-6
+    grid, rows, warps = kk.geometry(prep, True)
+    chain = -(-n // (rows * grid)) * rows + warps + grid
+    sum_tol = chain * 2.0 ** -24 * abs_sums + 1e-6
     if bool(((sums.double() - want).abs() > sum_tol).any()):
         raise AssertionError(f"sums out of tolerance at {(n, f, k)} "
                              f"{precision}")
     agree = ~mism
     err = float((dmin - p_dmin)[agree].abs().max()) if bool(agree.any()) \
         else 0.0
-    return {"shape": [n, f, k], "precision": precision,
+    return {"shape": [n, f, k], "offset": offset, "precision": precision,
+            "grid": grid, "sum_chain": chain,
             "id_mismatches_at_ties": int(mism.sum()),
             "dmin_max_abs_err": err,
             "sums_max_abs_err": float((sums.double() - want).abs().max())}
@@ -246,6 +257,23 @@ def time_ms(torch, fn, iters):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, iters, names):
+    """The kernels' own device time per call: the CUDA kernel durations that
+    ``torch.profiler`` records over ``iters`` calls, for the kernels whose
+    names hold one of ``names``; None where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.device_time_total for ev in prof.key_averages()
+                   if any(name in ev.key for name in names))
+    return total_us / iters / 1e3 if total_us else None
+
+
 def time_kernels(torch, kk, ops, device):
     rows = []
     for n, f, k in TIMED_SHAPES:
@@ -266,6 +294,9 @@ def time_kernels(torch, kk, ops, device):
                         iters),
                     "plain_ms": time_ms(
                         torch, lambda: kk.plain(prep, fused), iters),
+                    "device_ms": device_ms(
+                        torch, lambda: kk.launch(prep, fused), iters,
+                        ("assign_kernel", "reduce_partials")),
                     "library_ms": None,
                 }
                 row["bound_ms"], row["bound_by"] = bound_ms(
@@ -819,9 +850,11 @@ def main() -> int:
          build_dir=str(build.BUILD_DIR), ptxas=ptxas)
 
     worst = {"kmeans_assign_update": 0.0, "kmeans_assign": 0.0}
-    for n, f, k in CHECK_SHAPES:
+    checks = [(shape, 0) for shape in CHECK_SHAPES] + [
+        (shape, 1) for shape in CHECK_MISALIGNED]
+    for (n, f, k), offset in checks:
         for precision in PRECISIONS:
-            row = check_kernel(torch, kk, n, f, k, precision, device)
+            row = check_kernel(torch, kk, n, f, k, precision, device, offset)
             emit("check", **row)
             for name in worst:
                 worst[name] = max(worst[name], row["dmin_max_abs_err"])

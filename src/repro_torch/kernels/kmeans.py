@@ -11,7 +11,22 @@ Replaces the Pallas TPU kernel of ``repro/kernels/kmeans.py``
 
 The CUDA source is ``csrc/kmeans.cu``; its header note says what bounds
 the kernel on an H100 (device-memory bytes N·F·{4,2,1} + 8N for
-fp32/bf16/int8 points; 2·N·K·F flops) and what the design does about it.
+fp32/bf16/int8 points; 2·N·K·F flops) and what the design does about it:
+persistent 128-row tiles staged by a cp.async ring, rows in registers
+against centroids read as warp broadcasts, and the fused sums added per
+warp into shared accumulators, then over blocks in a fixed order by a
+second launch.  The fused outputs are the same bits on every launch on
+one card; the last bits of ``sums`` depend on the grid, which follows the
+card's SM count (:func:`geometry`).
+
+Shapes: the centroids, padded to multiples of 32 in K and F, an
+accumulator copy of the same size (fused form) and a staging slot of
+128 rows must fit in a block's 227 KB of shared memory.  That takes every
+K ≤ 128 with F ≤ 128, and fp32 points up to K = 800 at F = 32 or K = 160
+at F = 128 in the fused form (1,632 and 320 assign-only); wider shapes
+raise a ``ValueError`` naming shared memory.  (The kernel's first version,
+with 256-row tiles and no accumulator copies, took the fused form up to
+about K = 1,495 at F = 32 and K = 191 at F = 128.)
 
 Each wrapper takes fp32 points (N,F) and centroids (K,F) and does one of
 three things, by the device the tensors lie on:
@@ -38,6 +53,7 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -139,15 +155,19 @@ def plain(prep: Prepared, fused: bool):
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kmeans_smem_bytes.argtypes = [i, i]
+    lib.kmeans_smem_bytes.argtypes = [i, i, i, i]
     lib.kmeans_smem_bytes.restype = ctypes.c_size_t
-    lib.kmeans_block_rows.argtypes = []
-    lib.kmeans_block_rows.restype = i
+    lib.kmeans_tile_rows.argtypes = []
+    lib.kmeans_tile_rows.restype = i
+    lib.kmeans_block_threads.argtypes = []
+    lib.kmeans_block_threads.restype = i
+    lib.kmeans_max_grid.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.kmeans_max_grid.restype = i
     lib.kmeans_error_string.argtypes = [i]
     lib.kmeans_error_string.restype = ctypes.c_char_p
-    lib.kmeans_assign.argtypes = [i, p, p, p, p, i, i, i, p, p, p]
+    lib.kmeans_assign.argtypes = [i, p, p, p, p, i, i, i, i, p, p, p]
     lib.kmeans_assign.restype = i
-    lib.kmeans_assign_update.argtypes = [i, p, p, p, p, i, i, i,
+    lib.kmeans_assign_update.argtypes = [i, p, p, p, p, i, i, i, i,
                                          p, p, p, p, p, p, p]
     lib.kmeans_assign_update.restype = i
     return lib
@@ -165,6 +185,50 @@ def _library() -> ctypes.CDLL:
         return _lib
 
 
+def _raise(lib: ctypes.CDLL, err: int, what: str) -> None:
+    raise RuntimeError(f"k-means kernel {what} failed: CUDA error {err} "
+                       f"({lib.kmeans_error_string(err).decode()})")
+
+
+@functools.cache
+def _tile():
+    """(rows a tile, warps a block), constants of the built kernel."""
+    lib = _library()
+    return lib.kmeans_tile_rows(), lib.kmeans_block_threads() // 32
+
+
+@functools.lru_cache(maxsize=None)
+def _max_grid(device_index: int, code: int, fused: bool, f: int,
+              k: int) -> int:
+    """SMs × resident blocks of one form at (f, k) on one card; raises the
+    shared-memory ``ValueError`` where a block's layout does not fit."""
+    lib = _library()
+    smem = lib.kmeans_smem_bytes(code, int(fused), f, k)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"K·F = {k}·{f} needs {smem} B of shared memory per block; "
+            f"an sm_90 block has at most {MAX_SMEM_BYTES} B")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.kmeans_max_grid(code, int(fused), f, k, ctypes.byref(out))
+    if err != 0:
+        _raise(lib, err, "occupancy query")
+    return out.value
+
+
+def geometry(prep: Prepared, fused: bool):
+    """``(grid, tile_rows, warps)`` of a launch on prepared CUDA inputs:
+    blocks, rows a tile and warps a block.  Block b takes tiles b,
+    b + grid, ...; the fused sums' longest chain of fp32 additions is at
+    most ``ceil(tiles / grid) · tile_rows + warps + grid``."""
+    n, f = prep.points.shape
+    k = prep.centroids.shape[0]
+    rows, warps = _tile()
+    cap = _max_grid(prep.points.device.index or 0,
+                    _DTYPE_CODE[prep.precision], fused, f, k)
+    return min(-(-n // rows), cap), rows, warps
+
+
 def launch(prep: Prepared, fused: bool):
     """Launch the kernel on prepared CUDA inputs (counted in
     :data:`LAUNCHES`).  Returns what :func:`plain` returns."""
@@ -179,38 +243,37 @@ def launch(prep: Prepared, fused: bool):
         raise ValueError(f"shape ({n}, {f}, {k}) exceeds the kernel's "
                          f"32-bit row and element counts")
     lib = _library()
-    smem = lib.kmeans_smem_bytes(f, k)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"K·F = {k}·{f} needs {smem} B of shared memory per block; "
-            f"an sm_90 block has at most {MAX_SMEM_BYTES} B")
+    grid, _, _ = geometry(prep, fused)   # raises where K·F does not fit
     ids = torch.empty(n, dtype=torch.int32, device=dev)
     dmin = torch.empty(n, dtype=torch.float32, device=dev)
-    if fused:
-        sums = torch.zeros((k, f), dtype=torch.float32, device=dev)
-        counts = torch.zeros(k, dtype=torch.float32, device=dev)
     if n == 0:                      # no rows: nothing to launch over
-        return (ids, dmin, sums, counts) if fused else (ids, dmin)
+        if not fused:
+            return ids, dmin
+        return (ids, dmin, torch.zeros((k, f), dtype=torch.float32,
+                                       device=dev),
+                torch.zeros(k, dtype=torch.float32, device=dev))
     scales = None if prep.scales is None else prep.scales.data_ptr()
     args = (_DTYPE_CODE[prep.precision], pts.data_ptr(),
             prep.centroids.data_ptr(), prep.c2.data_ptr(), scales, n, f, k,
-            ids.data_ptr(), dmin.data_ptr())
+            grid, ids.data_ptr(), dmin.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if fused:
-            nblocks = -(-n // lib.kmeans_block_rows())
-            psums = torch.empty((nblocks, k, f), dtype=torch.float32,
-                                device=dev)
-            pcounts = torch.empty((nblocks, k), dtype=torch.float32,
+            # the block partials (grid, k, f) and (grid, k) in one scratch
+            # buffer; the sums (k, f) and counts (k) the second launch writes
+            # in another
+            scratch = torch.empty(grid * (k * f + k), dtype=torch.float32,
                                   device=dev)
+            psums, pcounts = torch.split(scratch, [grid * k * f, grid * k])
+            out = torch.empty(k * f + k, dtype=torch.float32, device=dev)
+            sums, counts = out[:k * f].view(k, f), out[k * f:]
             err = lib.kmeans_assign_update(
                 *args, psums.data_ptr(), pcounts.data_ptr(),
                 sums.data_ptr(), counts.data_ptr(), stream)
         else:
             err = lib.kmeans_assign(*args, stream)
     if err != 0:
-        raise RuntimeError(f"k-means kernel launch failed: CUDA error {err} "
-                           f"({lib.kmeans_error_string(err).decode()})")
+        _raise(lib, err, "launch")
     LAUNCHES["kmeans_assign_update" if fused else "kmeans_assign"].incr()
     return (ids, dmin, sums, counts) if fused else (ids, dmin)
 

@@ -27,9 +27,11 @@ def symmetric_scales(points: torch.Tensor,
                      centroids: torch.Tensor) -> torch.Tensor:
     """Per-feature symmetric scales shared by points and centroids:
     ``s_f = max(max|x_f|, max|c_f|) / 127`` (never zero, so dequantize is
-    always well-defined).  Returns an ``(F,)`` fp32 tensor."""
-    amax = torch.maximum(points.float().abs().amax(dim=0),
-                         centroids.float().abs().amax(dim=0))
+    always well-defined; with no points, the centroids' alone).  Returns an
+    ``(F,)`` fp32 tensor."""
+    amax = centroids.float().abs().amax(dim=0)
+    if points.shape[0]:
+        amax = torch.maximum(points.float().abs().amax(dim=0), amax)
     return amax.clamp_min(1e-12) / INT8_MAX
 
 

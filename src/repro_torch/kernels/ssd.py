@@ -182,7 +182,10 @@ def ssd_chunk_scan(xh, dt, A, B_, C_, D, *, chunk: int = 256):
     """Full SSD pass: the chunk kernel (or its plain version on a CPU
     tensor) and the inter-chunk recurrence.  xh (B,S,nh,hd); dt (B,S,nh)
     post-softplus; A (nh,) negative; B_/C_ (B,S,g,ds); D (nh,).  Returns
-    (y (B,S,nh,hd), final_state (B,nh,hd,ds))."""
+    (y (B,S,nh,hd), final_state (B,nh,hd,ds)).  A bf16 y is rounded twice,
+    after the chunk's own part and again after ``y_inter`` is added, as the
+    reference's Pallas entry point ``ssd_chunk_scan`` rounds it (the
+    model's ``layers.ssd_chunked`` rounds once)."""
     _check(xh, dt, A, B_, C_, D, chunk)
     dev = xh.device.type
     if dev == "cpu":

@@ -338,13 +338,18 @@ def ssd_chunked(xh, dt, A, B_, C_, D, chunk: int, *, return_state=False):
 
     xh (B,S,nh,hd); dt (B,S,nh) [post-softplus]; A (nh,) negative;
     B_/C_ (B,S,g,d_state); D (nh,). Returns y (B,S,nh,hd), and with
-    ``return_state`` also the final recurrent state (B,nh,hd,ds).  A bf16
-    y is rounded after the chunk's own part and again after ``y_inter``,
-    as in the reference's kernel path (its ``ssd_chunked`` rounds once).
+    ``return_state`` also the final recurrent state (B,nh,hd,ds) fp32.
+    As in the reference's ``ssd_chunked``, y is summed in fp32 (the
+    chunk's own part, ``y_inter`` and D·x) and rounded to xh's type once:
+    xh, B and C are widened before the chunk's part.  The kernel path
+    (:func:`repro_torch.kernels.ops.ssd_chunk_scan`) rounds a bf16 y twice,
+    as the reference's Pallas entry point does.
     """
     assert xh.shape[1] % chunk == 0, (xh.shape[1], chunk)
-    y, state = kssd.inter_chunk(*kssd.chunk_plain(xh, dt, A, B_, C_, D,
-                                                  chunk), C_, chunk)
+    parts = kssd.chunk_plain(xh.float(), dt, A, B_.float(), C_.float(), D,
+                             chunk)
+    y, state = kssd.inter_chunk(*parts, C_, chunk)
+    y = y.to(xh.dtype)
     if return_state:
         return y, state
     return y

@@ -95,6 +95,95 @@ def test_cuda_wrapper_rejects_oversized_widths(sm90_device):
         ops.kmeans_assign(x, x[:128])
 
 
+# the edges of the kernel's tiles: one row, one row past a tile, F and K
+# across the 32-padding, a start address off the 16-byte grid (x[1:] of
+# rows of 7 fp32 features), and no rows
+KMEANS_EDGES = ["n1", "tile_plus_one", "f33_k33", "misaligned", "n0"]
+
+
+def _edge_inputs(edge, device):
+    rng = np.random.default_rng(11)
+    n, f, k = {"n1": (1, 32, 25), "tile_plus_one": (None, 32, 25),
+               "f33_k33": (1000, 33, 33), "misaligned": (1001, 7, 3),
+               "n0": (0, 32, 25)}[edge]
+    if edge == "tile_plus_one":
+        x0, _ = _blob((8, 32, 25), device)
+        n = tk.geometry(tk.prepare(x0, x0[:1]), True)[1] + 1
+    x = torch.from_numpy((rng.standard_normal((n, f)) * 5).astype(
+        np.float32)).to(device)
+    c = torch.from_numpy((rng.standard_normal((k, f)) * 5).astype(
+        np.float32)).to(device)
+    if edge == "misaligned":
+        x = x[1:]
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    return x, c
+
+
+@pytest.mark.parametrize("edge", KMEANS_EDGES)
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_cuda_kmeans_edges(sm90_device, edge, precision):
+    x, c = _edge_inputs(edge, sm90_device)
+    n, f = x.shape
+    k = c.shape[0]
+    ids, dmin, sums, counts = ops.kmeans_assign_update(x, c,
+                                                       precision=precision)
+    a_ids, a_dmin = ops.kmeans_assign(x, c, precision=precision)
+    prep = tk.prepare(x, c, precision)
+    p_ids, p_dmin, p_sums, p_counts = tk.plain(prep, fused=True)
+    torch.cuda.synchronize()
+    assert ids.shape == (n,) and sums.shape == (k, f) and counts.shape == (k,)
+    assert torch.equal(a_ids, ids) and torch.equal(a_dmin, dmin)
+    np.testing.assert_array_equal(ids.cpu().numpy(), p_ids.cpu().numpy())
+    np.testing.assert_array_equal(counts.cpu().numpy(),
+                                  p_counts.cpu().numpy())
+    np.testing.assert_allclose(dmin.cpu().numpy(), p_dmin.cpu().numpy(),
+                               **DMIN_TOL)
+    np.testing.assert_allclose(sums.cpu().numpy(), p_sums.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_cuda_kmeans_bit_identical_at_1m(sm90_device):
+    """No atomics: three fused launches at the headline shape give the
+    same bits."""
+    x, c = _blob((1_000_000, 32, 25), sm90_device)
+    runs = [ops.kmeans_assign_update(x, c) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+# layouts of less and more shared memory in turn, the first call at each
+# shape after a larger one: (32, 25) at 46,336 B in fp32 fused, (7, 3) at
+# 20,736 B, (128, 128) above the 48 KB a launch may take unasked
+ALTERNATING = [(2000, 32, 25), (2000, 7, 3), (2000, 32, 25), (513, 128, 128),
+               (2000, 7, 3), (513, 128, 128)]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_cuda_kmeans_shapes_alternate(sm90_device, fused, precision):
+    """A call at one shape must not shrink the shared memory a later
+    launch at another shape may take, whatever the order the occupancy
+    query first sees the shapes in."""
+    tk._max_grid.cache_clear()
+    for case in ALTERNATING:
+        x, c = _blob(case, sm90_device)
+        prep = tk.prepare(x, c, precision)
+        if fused:
+            ids, dmin, sums, counts = ops.kmeans_assign_update(
+                x, c, precision=precision)
+        else:
+            ids, dmin = ops.kmeans_assign(x, c, precision=precision)
+        p_ids, p_dmin, _, p_counts = tk.plain(prep, fused=True)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(ids.cpu().numpy(), p_ids.cpu().numpy())
+        np.testing.assert_allclose(dmin.cpu().numpy(), p_dmin.cpu().numpy(),
+                                   **DMIN_TOL)
+        if fused:
+            np.testing.assert_array_equal(counts.cpu().numpy(),
+                                          p_counts.cpu().numpy())
+
+
 # (b, sq, sk, h, hkv, d, causal, window): tests/test_kernels.py's cases, a
 # ragged tile with a window, the widest head_dim, hymba's heads; then the
 # edges of the two designs' tiles: Sq != Sk without the causal mask (k

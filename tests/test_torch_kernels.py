@@ -15,9 +15,11 @@ from repro_torch.kernels import kmeans as tk
 from repro_torch.kernels import ops, quant, ref
 
 PRECISIONS = ("fp32", "bf16", "int8")
-# the reference's fused-kernel cases, tests/test_kernels.py:181
+# the reference's fused-kernel cases, tests/test_kernels.py:181; then the
+# edges of the CUDA kernel's tiles: F and K across its 32-padding, one
+# feature and one centroid, and ragged 64-row tiles
 FUSED_CASES = [(257, 7, 3), (1000, 32, 25), (25, 32, 25), (513, 128, 128),
-               (2500, 32, 25)]
+               (2500, 32, 25), (300, 33, 33), (65, 1, 1), (129, 64, 40)]
 # dmin: the expansion ||x||²−2x·c+||c||² cancels at d ≈ 0 (the centroids
 # are sample points), so the absolute floor is sqrt(eps·||x||²); the bound
 # of tests/test_ml.py:75-79
@@ -100,14 +102,32 @@ def test_assign_plain_matches_pallas(case, precision):
 
 
 def test_padded_rows_never_reach_the_accumulators():
-    """257 rows is one full 256-row tile plus one row: counts sum to
-    exactly n and the sums to the points' column sums."""
+    """257 rows is two full 128-row tiles of the CUDA kernel plus one row:
+    counts sum to exactly n and the sums to the points' column sums."""
     pts, cent = _blob((257, 7, 3))
     _, _, sums, counts = ops.kmeans_assign_update(torch.from_numpy(pts),
                                                   torch.from_numpy(cent))
     assert float(counts.sum()) == 257.0
     np.testing.assert_allclose(sums.sum(dim=0).numpy(), pts.sum(axis=0),
                                rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_no_rows_give_empty_ids_and_zero_sums(precision):
+    """n = 0 at every precision: the int8 scales then come from the
+    centroids alone, and the sums and counts are zero."""
+    _, cent = _blob((64, 8, 4))
+    c = torch.from_numpy(cent)
+    x = torch.zeros((0, 8))
+    ids, dmin, sums, counts = ops.kmeans_assign_update(x, c,
+                                                       precision=precision)
+    a_ids, a_dmin = ops.kmeans_assign(x, c, precision=precision)
+    assert ids.shape == a_ids.shape == dmin.shape == a_dmin.shape == (0,)
+    assert not sums.any() and sums.shape == (4, 8)
+    assert not counts.any() and counts.shape == (4,)
+    np.testing.assert_array_equal(
+        quant.symmetric_scales(x, c).numpy(),
+        quant.symmetric_scales(c, c).numpy())
 
 
 @pytest.mark.parametrize("precision", PRECISIONS)
