@@ -17,6 +17,14 @@ each with the launch counts set to 0 just before it and read just after:
   SSD kernels; then the same waves through the same server with
   ``impl="dense"`` (no kernel), which must agree.
 
+Then the paper's other two workloads and its full scenario, on the card:
+``placement="advise"`` for k-means and the auto-encoder; the auto-encoder
+and the isolation forest (100 trees, refit per message) in the quickstart's
+closed loop, each held against the same processor on the host; and
+``repro_torch.examples.edge_to_cloud_outlier`` (advise, paced k-means
+through the kernel with an injected fault, hot-swap to the auto-encoder,
+autoscaling).  These paths launch no kernel of their own beyond k-means.
+
 Each phase prints one JSON line; the card's ``nvidia-smi`` name and power
 limit, then a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line come last.  Any failure raises and
@@ -56,6 +64,10 @@ MAIN_SHAPE = (10_000, 32, 25)     # what one quickstart message gives
 D2_RTOL = 1e-5
 N_MESSAGES = 64
 SEED = 0
+# the auto-encoder's and the isolation forest's closed loops
+AE_MESSAGES = 64
+IFOREST_MESSAGES = 16
+LOOP_TIMEOUT_S = 120.0    # a cloud loop that fails its tasks ends here
 
 # flash attention: (b, sq, sk, h, hkv, d, causal, window).  The reference's
 # cases (tests/test_kernels.py:25-34), hymba-1.5b's two prefill waves,
@@ -813,6 +825,363 @@ def check_against_plain_path(torch, core, ml, device):
                                        - tb["centroids"]).max()))
 
 
+def profile_messages(torch, fn, msgs):
+    """The CUDA work of ``fn(msg)`` per message, from ``torch.profiler``
+    over one call per message after a warm-up call: ``(device_ms,
+    launches)``, the kernels' device time and the number of kernels (copies
+    and fills not counted).  Raises where the profiler records no device
+    kernel: the work did not run on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(msgs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for msg in msgs:
+            fn(msg)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) == DeviceType.CUDA
+               and not ev.key.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("the profiler recorded no CUDA kernel")
+    total_us = sum(ev.device_time_total for ev in kernels)
+    return (total_us / len(msgs) / 1e3,
+            sum(ev.count for ev in kernels) / len(msgs))
+
+
+def on_card(torch, tree, what):
+    """``tree`` after checking that it holds tensors and that every array
+    in it is a tensor on the card (plain numbers are let through)."""
+    from torch.utils import _pytree as pytree
+    arrays = [x for x in pytree.tree_leaves(tree)
+              if isinstance(x, (torch.Tensor, np.ndarray))]
+    if not arrays or not all(isinstance(x, torch.Tensor)
+                             and x.device.type == "cuda" for x in arrays):
+        raise AssertionError(f"{what} is not on the card")
+    return tree
+
+
+def check_on_card(torch, obj, method, what):
+    """Wrap ``obj.method`` so that every result it returns is checked
+    with ``on_card``."""
+    inner = getattr(obj, method)
+
+    def checked(*args, **kwargs):
+        return on_card(torch, inner(*args, **kwargs), what)
+
+    setattr(obj, method, checked)
+
+
+def cloud_loop(core, ml, handler, n_messages, model, seed):
+    """``run_pipeline``'s closed loop for another cloud processor: 4 edge
+    producers of 10,000 × 32 messages, 4 cloud workers on one card."""
+    manager = core.PilotManager()
+    edge = manager.submit_pilot(core.ComputeResource(
+        tier="edge", n_workers=4, memory_gb=4))
+    cloud = manager.submit_pilot(core.ComputeResource(
+        tier="cloud", n_devices=1, n_workers=4, memory_gb=44))
+    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], n_clusters=25,
+                              seed=seed)
+
+    def process_edge(context, data=None):
+        return data[np.isfinite(data).all(axis=1)]
+
+    res = core.EdgeToCloudPipeline(
+        pilot_cloud_processing=cloud, pilot_edge=edge,
+        produce_function_handler=gen.make_producer(),
+        process_edge_function_handler=process_edge,
+        process_cloud_function_handler=handler,
+        function_context={"model": model},
+    ).run(n_messages=n_messages, timeout_s=LOOP_TIMEOUT_S)
+    manager.release_all()
+    if res.n_processed != n_messages:
+        raise AssertionError(f"{model}: processed {res.n_processed}/"
+                             f"{n_messages}")
+    for r in res.results:
+        if not (np.isfinite(r["mean_score"]) and r["n_outliers"] >= 0):
+            raise AssertionError(f"{model}: bad result {r}")
+    return res
+
+
+def advise(core, cost):
+    """``placement="advise"`` for k-means and the auto-encoder on a port
+    pipeline at the paper's largest message: the best placement per band
+    and the wall time of each advisory grid.  Checks 5 finite rows a band
+    for both, and tests/test_cost.py's Fig-3 pin for k-means: it goes to
+    the edge (or hybrid) at 10 Mbit/s."""
+    manager = core.PilotManager(devices=())
+    edge = manager.submit_pilot(core.ComputeResource(tier="edge",
+                                                     n_workers=4))
+    cloud = manager.submit_pilot(core.ComputeResource(tier="cloud",
+                                                      n_workers=4))
+    out = {}
+    for model in ("kmeans", "autoencoder"):
+        pipe = core.EdgeToCloudPipeline(
+            pilot_cloud_processing=cloud, pilot_edge=edge,
+            produce_function_handler=lambda ctx: None,
+            process_cloud_function_handler=lambda ctx, data=None: None,
+            function_context={"model": model, "n_points": MAIN_SHAPE[0]})
+        t0 = time.perf_counter()
+        rep = pipe.run(placement="advise")
+        wall = time.perf_counter() - t0
+        if not isinstance(rep, cost.AdvisorReport) or rep.model != model:
+            raise AssertionError(f"advise({model}) returned {rep!r}")
+        bands = list(dict.fromkeys(c.wan_band for c in rep.cells))
+        if len(rep.rows()) != 5 * len(bands) or not all(
+                np.isfinite(r["msgs_per_s"]) for r in rep.rows()):
+            raise AssertionError(f"advise({model}): bad rows")
+        out[model] = {"best": {b: rep.best(b).placement for b in bands},
+                      "wall_s": wall}
+    manager.release_all()
+    if out["kmeans"]["best"]["10mbit"] not in ("edge", "hybrid"):
+        raise AssertionError(f"k-means at 10 Mbit/s: {out['kmeans']}")
+    emit("advise", models=out)
+    return out
+
+
+def ae_bound(n, sizes):
+    """Least time for one AE processor message of n points on this card:
+    the larger of its bytes (points read once, scores written once, the
+    params and both Adam moments read and written once) over HBM bandwidth
+    and its fp32 flops over the fp32 peak.  Flops: a scoring forward, the
+    training forward, a backward of twice the forward and the post-step
+    loss's forward, 2·din·dout a point and layer each.  Also returns the
+    flops and the activations one forward writes (MB), for the record."""
+    macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    n_params = macs + sum(sizes[1:])
+    flops = 5 * 2.0 * n * macs
+    nbytes = n * sizes[0] * 4 + n * 4 + 2 * 3 * n_params * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["fp32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops,
+            n * sum(sizes[1:]) * 4 / 1e6)
+
+
+def iforest_bound(n, f, n_trees, n_nodes, depth):
+    """Least time for one isolation-forest message (refit, then score):
+    the points read once, the forest (int32 feature, fp32 threshold and
+    size, bool leaf flag a node) and the scores written once, over HBM
+    bandwidth; against a compare and a select a point, tree and level
+    over the fp32 peak."""
+    nbytes = n * f * 4 + n_trees * n_nodes * 13 + n * 4
+    ops = 2.0 * n * n_trees * depth
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["fp32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_ae_pipeline(torch, core, ml, device):
+    """The auto-encoder processor in ``run_pipeline``'s closed loop on the
+    card: 64 training messages, then 8 inference messages from the
+    published state; its device time and kernel launches per message from
+    the profiler.  The 4 cloud workers share the processor's state without
+    a lock, as in the reference, so concurrent updates are lost: in lock
+    step one update in 4 is kept (tests/test_torch_autoencoder.py,
+    ``test_concurrent_workers_lose_updates_as_the_reference``), and the
+    published step must reach that floor."""
+    params = core.ParameterService()
+    ae = ml.AutoEncoder(device=device)
+    check_on_card(torch, ae, "update", "the AE's trained state")
+    check_on_card(torch, ae, "outlier_scores", "the AE's scores")
+    res = cloud_loop(core, ml, ae.make_processor(params, "autoencoder"),
+                     AE_MESSAGES, "autoencoder", seed=7)
+    torch.cuda.synchronize()
+    version, tree = params.fetch("autoencoder")
+    floor = AE_MESSAGES // 4
+    if version != AE_MESSAGES or int(tree["step"]) < floor or not all(
+            np.isfinite(p[k]).all() for p in tree["params"]
+            for k in ("w", "b")):
+        raise AssertionError(f"published AE state is wrong (version "
+                             f"{version}, step {int(tree['step'])})")
+    res_inf = cloud_loop(core, ml,
+                         ae.make_processor(params, "autoencoder",
+                                           train=False),
+                         8, "autoencoder", seed=8)
+    if params.version("autoencoder") != AE_MESSAGES:
+        raise AssertionError("inference published a version")
+    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=9)
+    msgs = [gen.sample() for _ in range(8)]
+    ae_prof = ml.AutoEncoder(device=device)
+    check_on_card(torch, ae_prof, "update", "the AE's trained state")
+    proc = ae_prof.make_processor(core.ParameterService(), "autoencoder")
+    dev_ms, launches = profile_messages(torch, lambda m: proc(None, data=m),
+                                        msgs)
+    sizes = [tree["params"][0]["w"].shape[0]] + [
+        p["w"].shape[1] for p in tree["params"]]
+    bound, bound_by, flops, act_mb = ae_bound(MAIN_SHAPE[0], sizes)
+    emit("ae_pipeline", n_processed=res.n_processed, wall_s=res.wall_s,
+         msgs_per_s=res.throughput()["msgs_per_s"],
+         inference_msgs_per_s=res_inf.throughput()["msgs_per_s"],
+         n_inference=res_inf.n_processed, params_version=version,
+         step=int(tree["step"]), step_floor=floor, device_ms_per_msg=dev_ms,
+         launches_per_msg=launches, bound_ms=bound, bound_by=bound_by,
+         gflop_per_msg=flops / 1e9, activation_mb_per_forward=act_mb)
+
+
+def ae_vs_host(torch, core, ml, device):
+    """The same 8 seeded messages through the AE processor on the card and
+    on the host from one initial state: equal outlier counts and versions;
+    mean scores and losses within 1e-5 relative and the final params within
+    5e-5 (tests/test_torch_autoencoder.py's tolerances against the
+    reference: Adam scales each element's step to about lr, so a gradient
+    that differs by a rounding moves a param where |g| ~ sqrt(nu))."""
+    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=21)
+    msgs = [gen.sample() for _ in range(8)]
+    init = ml.AutoEncoder(device="cpu").init()
+    losses = {}
+    results = {}
+    trees = {}
+    for name, dev in (("card", device), ("host", "cpu")):
+        ps = core.ParameterService()
+        ps.publish("ae", init)
+        ae = ml.AutoEncoder(device=dev)
+        seen = losses.setdefault(name, [])
+        update = ae.update
+
+        def recording(state, points, update=update, seen=seen, name=name):
+            new, loss = update(state, points)
+            if name == "card":
+                on_card(torch, new, "the card processor's state")
+            seen.append(loss)
+            return new, loss
+
+        ae.update = recording
+        proc = ae.make_processor(ps, "ae")
+        results[name] = [proc(None, data=m) for m in msgs]
+        trees[name] = ps.fetch("ae")
+    worst_score = worst_loss = 0.0
+    for a, b in zip(results["card"], results["host"]):
+        if a["n_outliers"] != b["n_outliers"]:
+            raise AssertionError(f"n_outliers {a} vs {b}")
+        err = abs(a["mean_score"] - b["mean_score"]) / abs(b["mean_score"])
+        worst_score = max(worst_score, err)
+    for a, b in zip(losses["card"], losses["host"]):
+        worst_loss = max(worst_loss, abs(a - b) / abs(b))
+    (va, ta), (vb, tb) = trees["card"], trees["host"]
+    param_err = max(float(np.abs(pa[k] - pb[k]).max())
+                    for pa, pb in zip(ta["params"], tb["params"])
+                    for k in ("w", "b"))
+    if va != vb or not int(ta["step"]) == int(tb["step"]) == len(msgs):
+        raise AssertionError(f"versions {va}/{vb}, steps {ta['step']}/"
+                             f"{tb['step']}")
+    if worst_score > 1e-5 or worst_loss > 1e-5 or param_err > 5e-5:
+        raise AssertionError(f"AE card vs host: mean_score {worst_score}, "
+                             f"loss {worst_loss}, params {param_err}")
+    emit("ae_vs_host", messages=len(msgs), mean_score_max_rel=worst_score,
+         loss_max_rel=worst_loss, param_max_abs=param_err,
+         n_outliers=[r["n_outliers"] for r in results["card"]])
+
+
+def run_iforest_pipeline(torch, core, ml, device):
+    """The isolation-forest processor (100 trees, refit per message) in
+    the same closed loop on the card for 16 messages; device time and
+    kernel launches per message from the profiler."""
+    params = core.ParameterService()
+    forest = ml.IsolationForest(device=device)
+    check_on_card(torch, forest, "fit", "the fitted forest")
+    check_on_card(torch, forest, "outlier_scores", "the forest's scores")
+    res = cloud_loop(core, ml, forest.make_processor(params, "iforest"),
+                     IFOREST_MESSAGES, "isoforest", seed=7)
+    version, tree = params.fetch("iforest")
+    if version != IFOREST_MESSAGES or tree["forest"]["size"].shape != (
+            100, 511):
+        raise AssertionError(f"published forest is wrong ({version})")
+    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=9)
+    msgs = [gen.sample() for _ in range(4)]
+    forest_prof = ml.IsolationForest(device=device)
+    check_on_card(torch, forest_prof, "fit", "the fitted forest")
+    proc = forest_prof.make_processor()
+    dev_ms, launches = profile_messages(torch, lambda m: proc(None, data=m),
+                                        msgs)
+    n_trees, n_nodes = tree["forest"]["size"].shape
+    bound, bound_by = iforest_bound(MAIN_SHAPE[0], MAIN_SHAPE[1], n_trees,
+                                    n_nodes, forest.max_depth)
+    emit("iforest_pipeline", n_processed=res.n_processed, wall_s=res.wall_s,
+         msgs_per_s=res.throughput()["msgs_per_s"], params_version=version,
+         device_ms_per_msg=dev_ms, launches_per_msg=launches,
+         bound_ms=bound, bound_by=bound_by)
+
+
+def _auc(s, is_out):
+    order = np.argsort(s)
+    ranks = np.empty_like(order, float)
+    ranks[order] = np.arange(len(s))
+    return float((ranks[is_out].mean() - ranks.mean()) / len(s) + 0.5)
+
+
+def iforest_vs_host(torch, ml, device):
+    """One forest built on the host and moved to the card scores the same
+    10,000 points on both: equal leaves and depths in every tree, scores
+    within 1e-6.  Then the card's own fit passes tests/test_ml.py:83-96's
+    band: outlier mean above inlier mean + 0.05, AUC > 0.85."""
+    from repro_torch.ml import isoforest as tif
+    pts, _ = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], outlier_frac=0.02,
+                                 seed=5).sample_with_labels()
+    host = ml.IsolationForest(device="cpu")
+    card = ml.IsolationForest(device=device)
+    st = host.fit(pts)
+    st_card = {"forest": {k: v.to(device) for k, v in st["forest"].items()},
+               "psi": st["psi"].to(device)}
+    x = torch.as_tensor(pts, dtype=torch.float32)
+    node_h, depth_h = tif._walk(st["forest"], x, host.max_depth)
+    node_c, depth_c = tif._walk(st_card["forest"], x.to(device),
+                                host.max_depth)
+    if not (torch.equal(node_c.cpu(), node_h)
+            and torch.equal(depth_c.cpu(), depth_h)):
+        raise AssertionError("leaves or depths differ between card and host")
+    on_card(torch, st_card, "the moved forest")
+    s_card = on_card(torch, card.outlier_scores(st_card, pts),
+                     "the card's scores").cpu().numpy()
+    s_host = host.outlier_scores(st, pts).numpy()
+    err = float(np.abs(s_card - s_host).max())
+    if err > 1e-6:
+        raise AssertionError(f"iforest scores differ by {err}")
+    band_pts, is_out = ml.MiniAppGenerator(
+        n_points=1_500, outlier_frac=0.03, seed=4).sample_with_labels()
+    own = ml.IsolationForest(n_trees=50, device=device)
+    own_state = on_card(torch, own.fit(band_pts), "the card's own fit")
+    s = own.outlier_scores(own_state, band_pts).cpu().numpy()
+    gap = float(s[is_out].mean() - s[~is_out].mean())
+    auc = _auc(s, is_out)
+    if gap <= 0.05 or auc <= 0.85:
+        raise AssertionError(f"card fit: gap {gap}, AUC {auc}")
+    emit("iforest_vs_host", points=len(pts), score_max_abs_err=err,
+         leaves_equal=True, depths_equal=True, own_fit_gap=gap,
+         own_fit_auc=auc)
+
+
+def outlier_example(torch, kk, device):
+    """``repro_torch.examples.edge_to_cloud_outlier.main`` on the card,
+    with the k-means launch counts set to 0 just before and read just
+    after: every message processed, the fault retried, the swap to the
+    auto-encoder recorded, the k-means kernel launched."""
+    from repro_torch.examples import edge_to_cloud_outlier as example
+    for counter in kk.LAUNCHES.values():
+        counter.reset()
+    t0 = time.perf_counter()
+    out = example.main(device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    if out["n_processed"] != out["n_messages"]:
+        raise AssertionError(f"example processed {out['n_processed']}/"
+                             f"{out['n_messages']}")
+    if not out["fault_fired"] or out["retries"] < 1:
+        raise AssertionError("the injected fault was not retried")
+    if out["swaps"] != ["process_cloud"]:
+        raise AssertionError(f"swaps {out['swaps']}")
+    if launches["kmeans_assign_update"] < 1:
+        raise AssertionError("the example launched no k-means kernel")
+    emit("outlier_example", n_messages=out["n_messages"],
+         n_processed=out["n_processed"], wall_s=wall,
+         run_wall_s=out["wall_s"], msgs_per_s=out["msgs_per_s"],
+         advise_wall_s=out["advise_wall_s"], advice=out["advice"],
+         retries=out["retries"], swaps=out["swaps"],
+         autoscale=out["autoscale"], kmeans_messages=out["kmeans_messages"],
+         params_versions=out["params_versions"], launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -820,6 +1189,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.core as core
+    import repro_torch.cost as cost
     import repro_torch.ml as ml
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
@@ -872,6 +1242,14 @@ def main() -> int:
     serve_vs_plain(torch, serve, fa, ssd, params, cfg, prompts, done,
                    captured, device)
     del params, captured
+
+    # the paper's other two workloads, the advisor and its full scenario
+    advise(core, cost)
+    run_ae_pipeline(torch, core, ml, device)
+    ae_vs_host(torch, core, ml, device)
+    run_iforest_pipeline(torch, core, ml, device)
+    iforest_vs_host(torch, ml, device)
+    outlier_example(torch, kk, device)
 
     kernels = []
     for name, replaces in (

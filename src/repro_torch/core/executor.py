@@ -540,7 +540,7 @@ class SimExecutor:
     crash_plan: objects with ``at_s`` / ``consumer_idx`` /
         ``restart_after_s`` / optional ``kind`` (``"crash"`` raises inside
         the consumer mid-run; ``"silent"`` goes dark so the heartbeat
-        monitor must detect the loss). ``repro.sim.scenarios.FailureSpec``
+        monitor must detect the loss). ``repro_torch.sim.scenarios.FailureSpec``
         matches this shape.
     drift_plan: mid-run environment drift events — objects with ``at_s``
         and ``kind`` (``"band"``: re-price a hop's live
@@ -549,9 +549,9 @@ class SimExecutor:
         consumer stage's fleet by ``delta`` — ``stage`` defaults to the
         final stage; ``"outage"``: kill every consumer of stages bound
         to ``tier``), each with optional ``restore_after_s``.
-        ``repro.sim.scenarios.DriftSpec`` matches this shape.  Scheduled
+        ``repro_torch.sim.scenarios.DriftSpec`` matches this shape.  Scheduled
         as ordinary events, so drifted runs stay bit-reproducible.
-    readvisor: a :class:`~repro.cost.readvisor.ReAdvisor` watching the
+    readvisor: a :class:`~repro_torch.cost.readvisor.ReAdvisor` watching the
         run's observed hop delay against the cost-model prediction; the
         executor ticks it every ``readvisor.interval_s`` of virtual time
         and applies its hot-swap decisions (stage re-bind + consumer

@@ -649,7 +649,7 @@ class ContinuumPipeline:
         ``arrival_plan`` switches the sources to *open-loop* traffic: one
         sorted sequence of absolute arrival times (seconds from run
         start) per source device — e.g. drawn from
-        :class:`repro.sim.scenarios.PoissonArrivals` /
+        :class:`repro_torch.sim.scenarios.PoissonArrivals` /
         ``DiurnalArrivals`` / ``FlashCrowdArrivals``.  ``n_messages`` is
         then taken from the plan (and must not disagree if given).
 
@@ -658,16 +658,26 @@ class ContinuumPipeline:
         threads) or :class:`~repro_torch.core.executor.SimExecutor`
         (single-threaded virtual time, bit-reproducible metrics).
 
-        ``placement='advise'`` asks the placement advisor
-        (``repro.cost.advisor.PlacementAdvisor`` in the reference) for a
-        ranked recommendation instead of running the pipeline.  The
-        advisor is not ported yet, so here it raises
-        ``NotImplementedError`` after the same argument checks; the
-        advisory knobs ``latency_budget``/``wan_budget``/``hybrid_reduce``
-        are still rejected without it.
+        ``placement='advise'`` does not execute this pipeline at all:
+        instead the :class:`~repro_torch.cost.advisor.PlacementAdvisor`
+        emulates a pipeline of this shape (devices/consumers; workload from
+        ``function_context['model']`` / ``['n_points']``; straggler
+        speculation from this pipeline's ``speculative_factor``) under
+        its own ``SimExecutor`` across placements × WAN bands — every
+        advisory cell carries its per-stage tier vector — and returns
+        the ranked :class:`~repro_torch.cost.advisor.AdvisorReport` — the
+        paper's "evaluate task placement based on multiple factors" knob,
+        multi-objectively: ``latency_budget`` caps predicted p95 latency
+        (seconds), ``wan_budget`` caps advisory WAN megabytes (cells over
+        budget are flagged infeasible and ranked last, never dropped),
+        and ``hybrid_reduce`` sweeps the hybrid/fog placements' edge
+        pre-aggregation factor.  An explicit ``n_messages`` sets the
+        per-cell advisory fidelity (default 32 — the whole grid in a few
+        hundred ms); ``timeout_s``/``collect_results`` do not apply and
+        ``scheduler`` is rejected.
 
         ``readvise=ReAdvisor(...)`` attaches an *online* re-advisor
-        (:class:`~repro.cost.readvisor.ReAdvisor`) for the duration of
+        (:class:`~repro_torch.cost.readvisor.ReAdvisor`) for the duration of
         the run: the executor ticks it periodically (SimExecutor: a
         scheduled virtual-time event; ThreadedExecutor: a monitor
         thread), and when observed hop latency flips the placement
@@ -679,16 +689,20 @@ class ContinuumPipeline:
                 raise ValueError(
                     "placement='advise' runs its own SimExecutor grid; "
                     "scheduler= does not apply")
-            if self.context.get("model") is None:
+            model = self.context.get("model")
+            if model is None:
                 raise ValueError(
                     "placement='advise' needs function_context['model'] "
                     "to name a calibrated workload (e.g. 'kmeans') — "
                     "advising for a guessed model would silently rank "
                     "the wrong trade-off")
-            raise NotImplementedError(
-                "placement='advise' needs the placement advisor, which is "
-                "not ported yet (repro.cost.advisor is the reference); "
-                "run with an explicit placement")
+            # imported lazily: the advisor rides the sim/scenarios stack,
+            # which imports this module
+            from repro_torch.cost.advisor import PlacementAdvisor
+            kw = {} if n_messages is None else {"n_messages": n_messages}
+            return PlacementAdvisor.from_pipeline(self, **kw).advise(
+                model, latency_budget=latency_budget,
+                wan_budget=wan_budget, hybrid_reduce=hybrid_reduce)
         if (latency_budget is not None or wan_budget is not None
                 or hybrid_reduce is not None):
             raise ValueError(

@@ -6,10 +6,13 @@
   ``calibration.json`` (a copy of the reference's file),
 * :mod:`repro_torch.cost.model`     — :class:`CostModel`, the single
   compute/transfer/service-time oracle the placement engine and the DES
-  service models consume.
-
-The placement advisor and the re-advisor (``repro.cost.advisor``,
-``repro.cost.readvisor``) are not ported yet.
+  service models consume,
+* :mod:`repro_torch.cost.advisor`   — :class:`PlacementAdvisor`, a
+  DES-backed ranked placement recommendation on the genuine pipeline
+  (re-exported lazily: it imports the sim/core stack, which imports this
+  package),
+* :mod:`repro_torch.cost.readvisor` — :class:`ReAdvisor`, the online
+  re-advisor that hot-swaps a stage's placement under drift.
 """
 from repro_torch.cost.calibrate import (CALIBRATION_PATH, ModelCost,
                                         load_calibration, save_calibration)
@@ -19,6 +22,8 @@ from repro_torch.cost.profiles import (DEFAULT_PROFILE, DEFAULT_WAN_BAND,
                                        DeviceProfile, Hop, LinkModel, Route,
                                        TierProfile, Topology)
 
+_LAZY = ("PlacementAdvisor", "AdvisorReport", "Advice")
+
 __all__ = [
     "LinkModel", "DeviceProfile", "TierProfile", "ContinuumProfile",
     "Topology", "Route", "Hop",
@@ -26,4 +31,12 @@ __all__ = [
     "ModelCost", "load_calibration", "save_calibration",
     "CALIBRATION_PATH",
     "CostModel", "default_cost_model",
+    *_LAZY,
 ]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        from repro_torch.cost import advisor
+        return getattr(advisor, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,8 +2,8 @@
 
 One object answers every "how long will this take" question in the repo —
 the :class:`~repro_torch.core.placement.PlacementEngine` scores pilots through
-it, :mod:`repro.sim.scenarios` prices DES stage service times with it, and
-the :class:`~repro.cost.advisor.PlacementAdvisor` sweeps it under the real
+it, :mod:`repro_torch.sim.scenarios` prices DES stage service times with it, and
+the :class:`~repro_torch.cost.advisor.PlacementAdvisor` sweeps it under the real
 pipeline.  All parameters flow from :mod:`repro_torch.cost.profiles` (devices /
 tiers / links) and :mod:`repro_torch.cost.calibrate` (per-model costs measured
 from the compiled ``repro_torch.ml`` kernels), never from per-module constants.

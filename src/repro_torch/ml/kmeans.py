@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant
@@ -63,6 +64,14 @@ def resolve_device(device=None) -> torch.device:
                 "by default; pass device='cpu' to run on the host")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def tree_to_device(tree, device):
+    """A numpy tree — what a ``ParameterService.fetch`` of either package
+    returns — as tensors on ``device``, dtypes kept."""
+    dev = torch.device(device)
+    return pytree.tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
 
 
 def load_reference_state(tree, device) -> dict:

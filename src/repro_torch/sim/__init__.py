@@ -10,13 +10,41 @@ beside ``repro.sim``.
   discrete-event loop over the virtual clock with deterministic
   (time, insertion-order) event ordering.
 
-The scenario harness and the sharded runner (``repro.sim.scenarios``,
-``repro.sim.shard``) are not ported yet.
+* :mod:`repro_torch.sim.scenarios` — the Fig-3 scenario harness:
+  geo-distributed pipeline runs (k-means / autoencoder × edge / cloud /
+  hybrid placement × WAN bands × failure schedules) replayed in
+  milliseconds of wall time with bit-reproducible metrics.
+
+``scenarios`` is re-exported lazily (PEP 562) because it imports
+``repro_torch.core`` which itself imports :mod:`repro_torch.sim.clock`.
+The sharded runner (``repro.sim.shard``) is not ported yet.
 """
 from repro_torch.sim.clock import (SYSTEM_CLOCK, Clock, SimClock,
                                    SystemClock, as_clock)
 from repro_torch.sim.scheduler import (PARK, Actor, ActorKilled,
                                        EventScheduler)
 
+_SCENARIO_NAMES = ("ModelSpec", "Scenario", "ScenarioResult", "FailureSpec",
+                   "WAN_BANDS", "KMEANS", "AUTOENCODER", "ISOFOREST",
+                   "MODELS", "PLACEMENTS", "model_specs", "run_scenario",
+                   "sweep", "format_table",
+                   "ArrivalProcess", "PoissonArrivals", "DiurnalArrivals",
+                   "FlashCrowdArrivals", "TraceArrivals", "arrival_plan")
+# SimExecutor lives in repro_torch.core.executor (it drives the real
+# pipeline); re-exported here lazily because repro_torch.core imports
+# repro_torch.sim.clock.
+_EXECUTOR_NAMES = ("SimExecutor", "ThreadedExecutor")
+
 __all__ = ["Clock", "SystemClock", "SimClock", "SYSTEM_CLOCK", "as_clock",
-           "EventScheduler", "Actor", "ActorKilled", "PARK"]
+           "EventScheduler", "Actor", "ActorKilled", "PARK",
+           *_EXECUTOR_NAMES, *_SCENARIO_NAMES]
+
+
+def __getattr__(name):
+    if name in _SCENARIO_NAMES:
+        from repro_torch.sim import scenarios
+        return getattr(scenarios, name)
+    if name in _EXECUTOR_NAMES:
+        from repro_torch.core import executor
+        return getattr(executor, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,18 +3,23 @@ on the same inputs.  Imports torch only, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Every test skips on a host without a Hopper card; ``chip_smoke.py`` drives
-the same comparisons at the main path's full sizes."""
+The auto-encoder and the isolation forest, which have no kernel of their
+own, are held against the same processors on the host.  Every test skips
+on a host without a Hopper card; ``chip_smoke.py`` drives the same
+comparisons at the main path's full sizes."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.core import ParameterService
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kmeans as tk
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd as tssd
-from repro_torch.ml import KMeans, MiniAppGenerator
+from repro_torch.ml import (AutoEncoder, IsolationForest, KMeans,
+                            MiniAppGenerator)
+from repro_torch.ml import isoforest as tif
 from repro_torch.models import transformer as TT
 from repro_torch.serve import BatchServer, Request
 
@@ -367,3 +372,70 @@ def test_cuda_batch_server_goes_through_both_kernels(sm90_device):
     assert results["card"][1] == (cfg.n_layers, cfg.n_layers)
     assert results["host"][1] == (0, 0)
     assert results["card"][0] == results["host"][0]
+
+
+def _publish_both(tree):
+    services = ParameterService(), ParameterService()
+    for ps in services:
+        ps.publish("m", tree)
+    return services
+
+
+def test_cuda_autoencoder_processor_matches_host(sm90_device):
+    """The AE processor on the card and on the host from the same initial
+    state on the same messages: equal outlier counts and versions, mean
+    scores within 1e-5 relative and params within 5e-5 (the host tests'
+    tolerances against the reference, tests/test_torch_autoencoder.py)."""
+    gen = MiniAppGenerator(n_points=2_500, seed=21)
+    msgs = [gen.sample() for _ in range(4)]
+    ps_card, ps_host = _publish_both(AutoEncoder(device="cpu").init())
+    card = AutoEncoder(device=sm90_device).make_processor(ps_card, "m")
+    host = AutoEncoder(device="cpu").make_processor(ps_host, "m")
+    for msg in msgs:
+        a, b = card(None, data=msg), host(None, data=msg)
+        assert a["n_outliers"] == b["n_outliers"]
+        assert a["mean_score"] == pytest.approx(b["mean_score"], rel=1e-5)
+    assert ps_card.version("m") == ps_host.version("m") == len(msgs) + 1
+    _, ta = ps_card.fetch("m")
+    _, tb = ps_host.fetch("m")
+    assert int(ta["step"]) == int(tb["step"]) == len(msgs)
+    for pa, pb in zip(ta["params"], tb["params"]):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(pa[k], pb[k], rtol=0, atol=5e-5)
+
+
+def test_cuda_isoforest_scores_a_host_forest_like_the_host(sm90_device):
+    """One forest built on the host and moved to the card: the same leaves
+    and depths for every point in every tree, scores within 1e-6."""
+    pts, _ = MiniAppGenerator(n_points=3_000, outlier_frac=0.03,
+                              seed=4).sample_with_labels()
+    host = IsolationForest(device="cpu")
+    st = host.fit(pts)
+    card = IsolationForest(device=sm90_device)
+    st_card = {"forest": {k: v.to(sm90_device)
+                          for k, v in st["forest"].items()},
+               "psi": st["psi"].to(sm90_device)}
+    x = torch.as_tensor(pts, dtype=torch.float32)
+    node_h, depth_h = tif._walk(st["forest"], x, host.max_depth)
+    node_c, depth_c = tif._walk(st_card["forest"], x.to(sm90_device),
+                                host.max_depth)
+    assert torch.equal(node_c.cpu(), node_h)
+    assert torch.equal(depth_c.cpu(), depth_h)
+    np.testing.assert_allclose(
+        card.outlier_scores(st_card, pts).cpu().numpy(),
+        host.outlier_scores(st, pts).numpy(), rtol=0, atol=1e-6)
+
+
+def test_cuda_isoforest_own_fit_separates_outliers(sm90_device):
+    """tests/test_ml.py's band on a forest the card built itself."""
+    pts, is_out = MiniAppGenerator(n_points=1_500, outlier_frac=0.03,
+                                   seed=4).sample_with_labels()
+    f = IsolationForest(n_trees=50, device=sm90_device)
+    st = f.fit(pts)
+    assert all(v.device.type == "cuda" for v in st["forest"].values())
+    s = f.outlier_scores(st, pts).cpu().numpy()
+    assert s[is_out].mean() > s[~is_out].mean() + 0.05
+    order = np.argsort(s)
+    ranks = np.empty_like(order, float)
+    ranks[order] = np.arange(len(s))
+    assert (ranks[is_out].mean() - ranks.mean()) / len(s) + 0.5 > 0.85
