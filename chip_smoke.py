@@ -25,6 +25,16 @@ closed loop, each held against the same processor on the host; and
 through the kernel with an injected fault, hot-swap to the auto-encoder,
 autoscaling).  These paths launch no kernel of their own beyond k-means.
 
+Last, training: internlm2-1.8b at full width and depth (24 layers, 1.89 B
+fp32 parameters, AdamW, remat, dense attention) for 8 steps of 4 × 1,024
+tokens through ``launch.train.train_loop``, with its step time, data time,
+peak memory, launches and device time a step against its fp32 bound; the
+same step on the card and on the host (2 layers); a checkpointed resume of
+mamba2-130m against a straight run; and the int8-compressed step on a
+one-rank NCCL group.  Training launches no hand-written kernel: the
+reference trains with ``impl="dense"`` and its Pallas kernels have no
+gradient.
+
 Each phase prints one JSON line; the card's ``nvidia-smi`` name and power
 limit, then a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line come last.  Any failure raises and
@@ -133,6 +143,11 @@ SERVE_MAX_LEN = 4128
 # a near-tie of the plain run's top two logits
 MODEL_TOL = 2e-3
 NEAR_TIE = 1e-4
+# training: internlm2-1.8b at full width and depth, fp32, 8 steps
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -1182,6 +1197,309 @@ def outlier_example(torch, kk, device):
          params_versions=out["params_versions"], launches=launches)
 
 
+# --- training (internlm2-1.8b at full width; mamba2-130m for resume) ------
+
+
+def train_flops(cfg, batch, seq, remat=True):
+    """fp32 matmul operations of one dense train step, from the shapes:
+    the projections, the FFN and the dense attention's two products (all
+    S² pairs: the dense path masks after the product) in every layer and
+    the head; backward twice the forward, and with remat the layers'
+    forward once more."""
+    d, h, kv, hd, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.n_layers)
+    tok = batch * seq
+    n_ffn = 3 if cfg.ffn_kind == "swiglu" else 2
+    layer = (2 * tok * (d * h * hd + 2 * d * kv * hd + h * hd * d
+                        + n_ffn * d * cfg.d_ff)
+             + 4 * batch * h * seq * seq * hd)
+    fwd = L * layer + 2 * tok * d * cfg.padded_vocab_size
+    return 3 * fwd + (L * layer if remat else 0)
+
+
+def profile_step(torch, fn):
+    """``(device_ms, launches)`` of one call of ``fn`` from
+    ``torch.profiler``: the CUDA kernels' time and count, copies and
+    fills not counted.  Raises where no CUDA kernel was recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) == DeviceType.CUDA
+               and not ev.key.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("the profiler recorded no CUDA kernel")
+    return (sum(ev.device_time_total for ev in kernels) / 1e3,
+            sum(ev.count for ev in kernels), out)
+
+
+def _max_abs(torch, a, b):
+    from torch.utils import _pytree as pytree
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)))
+
+
+def timed_steps(torch, TS):
+    """Wrap ``TS.make_train_step`` so that every step it makes records a
+    CUDA event as its work is queued.  Returns (events, restore): the
+    events of consecutive steps bound each step on the device's timeline,
+    idle time waiting for the host included, without a host sync."""
+    make = TS.make_train_step
+    events = []
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(*a, **kw):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            return step(*a, **kw)
+        return timed
+
+    def restore():
+        TS.make_train_step = make
+
+    TS.make_train_step = timed_make
+    return events, restore
+
+
+def train_full(torch, TL, TS, T, device):
+    """internlm2-1.8b at full width and depth through ``train_loop``:
+    fp32 params and AdamW moments, remat on, dense attention, 4 × 1,024
+    tokens a step from ``make_batch_iterator(seed=0)``, 8 steps, the loss
+    read back at the first and last step only (so the host draws the next
+    batch while the card runs the step, as with the default log_every);
+    then one more step under the profiler."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_batch_iterator
+    cfg = get_arch(TRAIN_ARCH)
+    tc = TS.TrainConfig(lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    compute_grads = TS.compute_grads
+    check_on_card(torch, TS, "compute_grads", "the gradients")
+    events, restore = timed_steps(torch, TS)
+    try:
+        t0 = time.perf_counter()
+        params, state, hist = TL.train_loop(
+            cfg, tc, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            seed=0, log_every=TRAIN_STEPS, device=device,
+            log=lambda _: stamps.append(time.perf_counter()))
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TS.compute_grads = compute_grads
+        restore()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    on_card(torch, params, "the trained params")
+    on_card(torch, state, "the train state")
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    if len(hist) != 2 or not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"non-finite loss or grad norm: {hist}")
+    if int(state["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"step {int(state['step'])}")
+    events.append(end)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    median_ms = statistics.median(step_ms[2:])          # steps 3-8
+    p0 = T.init_params(cfg, device=device, seed=0)     # train_loop's init
+    still = sum(torch.equal(a, b) for a, b in zip(
+        pytree.tree_leaves(params), pytree.tree_leaves(p0)))
+    del p0
+    if still:
+        raise AssertionError(f"{still} parameter leaves did not move")
+
+    it = make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                             device="cpu")
+    t = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        next(it)
+    data_ms = 1e3 * (time.perf_counter() - t) / TRAIN_STEPS
+    batch = {k: v.to(device) for k, v in next(it).items()}
+    step = TS.make_train_step(cfg, tc)
+    dev_ms, launches, out = profile_step(
+        torch, lambda: step(params, state, batch))
+    del out
+    # the host's time to queue one step, and of it the forward and
+    # backward's (compute_grads); the card runs the step meanwhile, so
+    # where the launch queue fills this includes waiting for the card
+    grads_ms = []
+
+    def timed_grads(*a, **kw):
+        t = time.perf_counter()
+        out = compute_grads(*a, **kw)
+        grads_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    TS.compute_grads = timed_grads
+    try:
+        t = time.perf_counter()
+        out = step(params, state, batch)
+        enqueue_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        TS.compute_grads = compute_grads
+    torch.cuda.synchronize()
+    del out
+    n_params = T.param_count(params)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=TRAIN_STEPS, dtype="fp32", remat=True, impl="dense",
+         wall_s=wall, step_ms_each=step_ms, step_ms=median_ms,
+         tokens_per_s=tokens / median_ms * 1e3,
+         tokens_per_s_wall_steps_2_8=(TRAIN_STEPS - 1) * tokens
+         / (stamps[-1] - stamps[0]), data_ms=data_ms,
+         peak_gb=peak_gb, state_gb_16B_per_param=16 * n_params / 1e9,
+         loss_first=losses[0], loss_last=losses[-1], grad_norm=gnorms,
+         device_ms_per_step=dev_ms, launches_per_step=launches,
+         host_enqueue_ms=enqueue_ms, host_enqueue_grads_ms=grads_ms[0],
+         device_idle_share=1 - dev_ms / median_ms,
+         tflop_per_step=flops / 1e12,
+         bound_ms=flops / PEAK_FLOPS["fp32"] * 1e3, bound_by="operations")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def train_vs_host(torch, TS, T, device):
+    """internlm2-1.8b at full width with its depth cut to 2 layers, 2 × 128
+    tokens: the same weights (made on the host from a seed, copied to the
+    card) and the same batches through three steps of ``make_train_step``
+    on the card and on the host."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_batch_iterator
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=2)
+    tc = TS.TrainConfig(lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    host = torch.device("cpu")
+    params_h, state_h = TS.init_train_state(cfg, tc, seed=1, device=host)
+    params_c = pytree.tree_map(lambda t: t.to(device), params_h)
+    state_c = pytree.tree_map(lambda t: t.to(device), state_h)
+    it = make_batch_iterator(cfg, 2, 128, seed=0, device=host)
+    step = TS.make_train_step(cfg, tc)
+    rows = []
+    for i in range(3):
+        batch = next(it)
+        params_c, state_c, mc = step(params_c, state_c,
+                                     {k: v.to(device)
+                                      for k, v in batch.items()})
+        params_h, state_h, mh = step(params_h, state_h, batch)
+        row = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+               for k in ("loss", "grad_norm")}
+        rows.append(row)
+        if max(row.values()) > 1e-4:
+            raise AssertionError(f"step {i + 1}: card and host differ {row}")
+    on_card(torch, (params_c, state_c), "the card's train state")
+    worst = _max_abs(torch, params_c, params_h)
+    if worst > 5e-5:
+        raise AssertionError(f"params differ by {worst} after 3 steps")
+    emit("train_vs_host", arch=cfg.name, reduced="n_layers 24 -> 2",
+         d_model=cfg.d_model, batch=2, seq=128, steps=3,
+         rel_diff_per_step=rows, params_max_abs=worst, tol_rel=1e-4,
+         tol_params=5e-5)
+
+
+def train_resume(torch, TL, TS, device):
+    """mamba2-130m at full width (d_model 768) with 2 layers, 2 × 256
+    tokens, lr 1e-3: 4 steps with a checkpoint, resumed to 8, against a
+    straight run to 8 (the reference test's 1e-6).  The SSD path's
+    backward runs on the card."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("mamba2-130m"), n_layers=2)
+    tc = TS.TrainConfig(lr=1e-3, warmup=2, total_steps=8)
+    ckpt = Path(__file__).resolve().parent / "build" / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(batch=2, seq_len=256, device=device, log=lambda _: None)
+    TL.train_loop(cfg, tc, steps=4, ckpt_dir=str(ckpt), ckpt_every=4, **kw)
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                     if f.is_file())
+    logs = []
+    p_res, _, _ = TL.train_loop(cfg, tc, steps=8, ckpt_dir=str(ckpt),
+                                ckpt_every=4, **{**kw, "log": logs.append})
+    if "resumed from step 4" not in logs:
+        raise AssertionError(f"did not resume: {logs}")
+    p_str, _, _ = TL.train_loop(cfg, tc, steps=8, **kw)
+    on_card(torch, p_res, "the resumed params")
+    worst = 0.0
+    from torch.utils import _pytree as pytree
+    for a, b in zip(pytree.tree_leaves(p_res), pytree.tree_leaves(p_str)):
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError("the straight run's params are not finite")
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+        worst = max(worst, float((a - b).abs().max()))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit("train_resume", arch=cfg.name, reduced="n_layers 24 -> 2",
+         d_model=cfg.d_model, batch=2, seq=256, steps="4 + 4 vs 8",
+         params_max_abs=worst, tol=1e-6, checkpoint_bytes=ckpt_bytes)
+
+
+def int8_pod(torch, TS, device):
+    """``make_compressed_train_step`` on a one-rank NCCL group, 2 steps of
+    reduced internlm2-1.8b: the error buffers stay bf16, finite and on the
+    card, and step 1's compressed gradient is within scale/2 of the plain
+    one (the residual bound of int8 rounding)."""
+    import socket
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import convert
+    from repro_torch.optim import tree_compressed_psum
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    tc = TS.TrainConfig(lr=1e-3, warmup=2, total_steps=8,
+                        grad_compression="int8_pod")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        params, state = TS.init_train_state(cfg, tc, seed=0, device=device)
+        it = make_batch_iterator(cfg, 4, 64, seed=0, device=device)
+        batches = [next(it), next(it)]
+        plain, _ = TS.compute_grads(cfg, tc, params, batches[0])
+        stacked = convert.stack_blocks(plain)
+        deq, _ = tree_compressed_psum(stacked, group)
+        worst = 0.0
+        for g, q in zip(pytree.tree_leaves(stacked), pytree.tree_leaves(deq)):
+            half = float(g.abs().max()) / 127 / 2
+            err = float((g - q).abs().max())
+            if err > half + 1e-6:           # tests/test_train_integration.py
+                raise AssertionError(f"compressed gradient off by {err} "
+                                     f"> scale/2 = {half}")
+            worst = max(worst, err / max(half, 1e-30))
+        step = TS.make_compressed_train_step(cfg, tc, group)
+        metrics = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        ef = pytree.tree_leaves(state["ef"])
+        on_card(torch, state["ef"], "the error buffers")
+        if not all(t.dtype == torch.bfloat16 and bool(torch.isfinite(t).all())
+                   for t in ef):
+            raise AssertionError("error buffers are not finite bf16")
+        if int(state["step"]) != 2:
+            raise AssertionError("steps were not counted")
+    finally:
+        dist.destroy_process_group()
+    emit("int8_pod", arch=cfg.name, backend="nccl", world_size=1, steps=2,
+         metrics=metrics, worst_err_over_half_scale=worst,
+         ef_max_abs=max(float(t.float().abs().max()) for t in ef))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1196,8 +1514,10 @@ def main() -> int:
     from repro_torch.kernels import kmeans as kk
     from repro_torch.kernels import ref as tref
     from repro_torch.kernels import ssd
+    from repro_torch.launch import train as TL
     from repro_torch.models import transformer as T
     import repro_torch.serve as serve
+    from repro_torch.train import step as TS
 
     # the plain version's fp32 matmul must not run in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1250,6 +1570,15 @@ def main() -> int:
     run_iforest_pipeline(torch, core, ml, device)
     iforest_vs_host(torch, ml, device)
     outlier_example(torch, kk, device)
+
+    # training: internlm2-1.8b at full width, card against host, resume,
+    # int8 compression on an NCCL group (no hand-written kernel: the
+    # reference trains with impl="dense", and its Pallas kernels have no
+    # gradient)
+    train_full(torch, TL, TS, T, device)
+    train_vs_host(torch, TS, T, device)
+    train_resume(torch, TL, TS, device)
+    int8_pod(torch, TS, device)
 
     kernels = []
     for name, replaces in (

@@ -110,8 +110,8 @@ def remesh_restart(manager: PilotManager, failed_pilot: Pilot,
     1. mark the failed pilot (its devices are gone),
     2. admit a replacement pilot over ``n_devices`` surviving devices,
     3. call ``restore_fn(new_pilot)`` — typically
-       ``ckpt.restore(..., mesh=new_pilot.mesh, pspecs=...)`` which reshards
-       the last checkpoint onto the new (smaller) mesh,
+       ``ckpt.restore(..., like=..., device=new_pilot.devices[0])``, which
+       places the last checkpoint on the replacement pilot's card,
     4. return (new_pilot, restored_state).
     """
     import dataclasses as _dc

@@ -84,8 +84,12 @@ def chunk_plain(xh, dt, A, B_, C_, D, chunk: int):
     ch = cum.permute(0, 1, 3, 2)                              # (b,nc,nh,q)
     keep = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=xh.device).tril()
-    L = torch.where(keep, torch.exp(ch[..., :, None] - ch[..., None, :])
-                    * dtc.permute(0, 1, 3, 2)[..., None, :], 0.0)
+    # mask before the exp: above the diagonal cum_i − cum_j > 0 can pass
+    # fp32's exp range, and masking inf after it gives 0 · inf = NaN in
+    # the backward (the reference's ssd_chunked does; ROADMAP C2)
+    L = torch.exp(torch.where(keep, ch[..., :, None] - ch[..., None, :],
+                              float("-inf"))) \
+        * dtc.permute(0, 1, 3, 2)[..., None, :]
     G = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)            # (b,nc,g,q,q)
     M = G.repeat_interleave(rep, dim=2) * L                   # (b,nc,nh,q,q)
     y = torch.einsum("bchij,bcjhp->bcihp", M, xc)

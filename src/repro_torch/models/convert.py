@@ -1,11 +1,15 @@
-"""Carry the reference's parameters and caches into the port.
+"""Carry parameter trees between the reference's layout and the port's.
 
 The reference keeps its layer params stacked on a leading axis
 (``params["blocks"]`` is one pytree of (L, ...) arrays, scanned with
-``lax.scan``); the port keeps a list of one dict a layer.  These helpers
+``lax.scan``); the port keeps a list of one dict a layer.  The loaders
 take the reference's trees as numpy arrays — in a test,
 ``jax.tree_util.tree_map(np.asarray, T.init_params(...))`` — and import
-neither JAX nor the reference themselves.
+neither JAX nor the reference themselves.  :func:`stack_blocks`,
+:func:`unstack_blocks` and :func:`to_reference` go the other way, for any
+tree shaped like the parameters (AdamW's ``mu`` and ``nu``, the error
+buffers of the int8 compression, a whole train state): checkpoints are
+written in the reference's layout, so either package restores them.
 """
 from __future__ import annotations
 
@@ -51,3 +55,42 @@ def load_reference_cache(tree, device=None):
     names another."""
     device = default_device(device)
     return {k: _tensor(v, device) for k, v in tree.items()}
+
+
+def stack_blocks(tree, device=None):
+    """The reference's layout of a port tree: every list of per-layer
+    trees becomes one tree of tensors stacked on a new leading axis, on
+    ``device`` (each tensor's own when None; meta tensors stack without
+    memory).  With ``device="cpu"`` a card's tree comes to the host one
+    stacked leaf at a time, so the host holds one copy of it."""
+    if isinstance(tree, dict):
+        return {k: stack_blocks(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        if isinstance(tree[0], dict):
+            return {k: stack_blocks([it[k] for it in tree], device)
+                    for k in tree[0]}
+        return torch.stack([t.to(device) if device else t for t in tree])
+    return tree.to(device) if device else tree
+
+
+def unstack_blocks(tree, like):
+    """The inverse of :func:`stack_blocks`, following ``like``: wherever
+    ``like`` (a port tree) holds a list, the stacked tree at that place is
+    split on its leading axis into ``len(like)`` entries (views, so a
+    restored state takes no second copy)."""
+    if isinstance(like, dict):
+        return {k: unstack_blocks(tree[k], v) for k, v in like.items()}
+    if isinstance(like, list):
+        return [unstack_blocks(_map(tree, lambda t, i=i: t[i]), v)
+                for i, v in enumerate(like)]
+    return tree
+
+
+def to_reference(tree):
+    """A port tree as the reference's: blocks stacked on axis 0, each
+    leaf a numpy array on the host.  numpy has no bf16 of its own, so a
+    bf16 leaf comes back widened to fp32, which is exact."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _map(stack_blocks(tree), host)

@@ -9,15 +9,22 @@ kinds ``gqa``, ``hybrid`` and ``none``, token inputs, RoPE or none).
   stacked on a leading layer axis, exactly as :func:`init_cache` allocates
   them (``repro.models.transformer.init_cache``).
 * :func:`decode_step` updates the cache **in place** and returns it.
+* :func:`forward` recomputes each block in the backward pass when
+  ``remat`` is on (``cfg.remat`` by default), the counterpart of the
+  reference's ``jax.checkpoint(body, policy=nothing_saveable)``;
+  :func:`loss_fn` is the next-token cross entropy the train step
+  differentiates.
 
-``ShardRules``/``param_pspecs`` wait for the launch stack and ``loss_fn``
-for training (ROADMAP A9).
+``ShardRules``/``param_pspecs`` wait for the launch stack (ROADMAP A9).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -101,13 +108,15 @@ def param_count(params) -> int:
 
 
 def _embed_inputs(params, cfg: ArchConfig, inputs):
+    # F.embedding, not indexing: its backward sums each row's gradient in a
+    # fixed order, where indexing's (index_put_ with accumulate) does not
     tok = inputs["tokens"]
     if cfg.n_codebooks == 1:
-        return params["embed"][tok]
+        return F.embedding(tok, params["embed"])
     # musicgen: (B,S,K) codebook ids, summed embeddings
-    out = params["embed"][0][tok[..., 0]]
+    out = F.embedding(tok[..., 0], params["embed"][0])
     for k in range(1, cfg.n_codebooks):
-        out = out + params["embed"][k][tok[..., k]]
+        out = out + F.embedding(tok[..., k], params["embed"][k])
     return out
 
 
@@ -146,16 +155,60 @@ def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, impl, chunk):
     return x
 
 
-def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024):
+def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
+            remat: Optional[bool] = None):
     """Full-sequence forward. Returns (logits, aux) with aux empty (no MoE
-    in this port yet)."""
+    in this port yet).
+
+    With ``remat`` (``cfg.remat`` when None) and gradients enabled, each
+    block keeps only its input for the backward pass and runs again
+    there.  ``impl="kernel"`` raises under autograd: the kernels are
+    forward-only, as the reference's Pallas kernels are (its ``jax.grad``
+    fails inside ``pallas_call``)."""
     L.check_supported(cfg)
+    remat = cfg.remat if remat is None else remat
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in pytree.tree_leaves(params))
+    if grad and impl == "kernel":
+        raise NotImplementedError(
+            "impl='kernel' has no gradient: the kernels, like the "
+            "reference's Pallas kernels, are forward-only; differentiate "
+            "impl='dense' or 'chunked'")
     x = _embed_inputs(params, cfg, inputs)
     cos, sin = _positions_cos_sin(cfg, x.shape[1], cfg.head_dim, x.device)
     for lp in params["blocks"]:
-        x = block_forward(lp, x, cos, sin, cfg, impl=impl, chunk=chunk)
+        if remat and grad:
+            # the blocks draw no random numbers: no RNG state to replay
+            x = checkpoint(block_forward, lp, x, cos, sin, cfg, impl=impl,
+                           chunk=chunk, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block_forward(lp, x, cos, sin, cfg, impl=impl, chunk=chunk)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, x), {}
+
+
+def loss_fn(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
+            remat: Optional[bool] = None):
+    """Next-token cross entropy. Returns (loss, {"ce", "loss"}).
+
+    The vocab-pad columns are masked to −1e30 before an fp32
+    log-sum-exp, so no gradient reaches the zero pad columns of the head.
+    The gold logit is a ``gather`` of the label's column: the reference
+    sums logits × one-hot, a single nonzero product, so the values are
+    the same without a (B, S, V) one-hot.  Labels are (B, S), or
+    (B, S, K) against (B, S, K, V) logits for codebook archs."""
+    logits, _ = forward(params, cfg, inputs, impl=impl, chunk=chunk,
+                        remat=remat)
+    vp = cfg.padded_vocab_size
+    if vp != cfg.vocab_size:
+        pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, -1e30, logits.float()).to(logits.dtype)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    labels = inputs["labels"].long()
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0].float()
+    ce = (lse - gold).mean()
+    return ce, {"ce": ce, "loss": ce}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,206 @@
+"""Train-step factory: loss → grad → (accumulate) → (int8 reduce) → clip →
+optimizer, ported from ``repro.train.step``.
+
+* gradient accumulation over microbatches in ``accum_dtype``,
+* remat (the model's per-block ``torch.utils.checkpoint``),
+* optional int8 gradient compression with error feedback across the ranks
+  of a ``torch.distributed`` group (``grad_compression='int8_pod'``, one
+  rank a pod; :func:`make_compressed_train_step` splits the batch over
+  the group as the reference's ``shard_map`` does over ``'pod'``),
+* AdamW / Adafactor per arch config, the reference's formulas.
+
+Gradients come from ``torch.autograd.grad`` over leaves detached from the
+caller's tensors, so a step never mutates its inputs: it returns new
+params and a new state, as the reference's jitted step does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import convert
+from repro_torch.models import transformer as T
+from repro_torch.optim import (clip_by_global_norm, cosine_schedule,
+                               make_optimizer)
+from repro_torch.optim.compression import tree_compressed_psum
+from repro_torch.optim.optimizers import Optimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10_000
+    grad_clip: float = 1.0
+    microbatches: int = 1
+    accum_dtype: str = "float32"       # bfloat16 for the >=100B archs
+    attn_impl: str = "dense"           # dense | chunked (kernel: no grad)
+    attn_chunk: int = 1024
+    grad_compression: Optional[str] = None   # None | 'int8_pod'
+    moment_dtype: str = "float32"
+
+
+def _stacked(opt: Optimizer) -> Optimizer:
+    """``opt`` over the reference's stacked layout.  Adafactor factors its
+    second moment and clips its update's RMS over each whole leaf, and the
+    reference's block leaves are (L, ...) stacks; running it per layer
+    would factor and clip other tensors.  Its state is kept stacked."""
+    def update(grads, state, params, step):
+        upd, new = opt.update(convert.stack_blocks(grads), state,
+                              convert.stack_blocks(params), step)
+        return convert.unstack_blocks(upd, params), new
+
+    return Optimizer(lambda params: opt.init(convert.stack_blocks(params)),
+                     update)
+
+
+def _opt(cfg: ArchConfig, tc: TrainConfig) -> Optimizer:
+    lr_fn = cosine_schedule(tc.lr, tc.warmup, tc.total_steps)
+    if cfg.optimizer == "adafactor":
+        return _stacked(make_optimizer("adafactor", lr_fn))
+    return make_optimizer("adamw", lr_fn,
+                          moment_dtype=getattr(torch, tc.moment_dtype))
+
+
+def init_train_state(cfg: ArchConfig, tc: TrainConfig, *,
+                     generator: Optional[torch.Generator] = None,
+                     seed: int = 0, device=None, dtype=torch.float32):
+    """(params, state): random params (:func:`transformer.init_params`)
+    and ``{"opt", "step", ["ef"]}`` with the reference's keys, on
+    ``device`` (``cuda:0`` unless another is named)."""
+    device = T.default_device(device)
+    params = T.init_params(cfg, generator=generator, device=device,
+                           dtype=dtype, seed=seed)
+    return params, init_state(cfg, tc, params)
+
+
+def init_state(cfg: ArchConfig, tc: TrainConfig, params):
+    """The zero train state for ``params`` (the optimizer's zero moments,
+    ``step`` 0 and, for int8 compression, zero bf16 error buffers)."""
+    device = pytree.tree_leaves(params)[0].device
+    state = {"opt": _opt(cfg, tc).init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if tc.grad_compression == "int8_pod":
+        state["ef"] = pytree.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.bfloat16,
+                                  device=p.device), params)
+    return state
+
+
+def _grads(cfg: ArchConfig, tc: TrainConfig, params, batch):
+    """(grads, metrics) of ``loss_fn`` at ``params`` on ``batch``."""
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    loss, metrics = T.loss_fn(pytree.tree_unflatten(leaves, spec), cfg,
+                              batch, impl=tc.attn_impl, chunk=tc.attn_chunk)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    return (pytree.tree_unflatten(grads, spec),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def _split(batch, m: int):
+    """``m`` microbatches; positions (3,B,S) carry the batch on dim 1."""
+    parts = {}
+    for k, v in batch.items():
+        dim = 1 if k == "positions" else 0
+        if v.shape[dim] % m:
+            raise ValueError(f"batch {v.shape[dim]} of {k!r} does not "
+                             f"split into {m}")
+        parts[k] = torch.chunk(v, m, dim=dim)
+    return [{k: parts[k][i] for k in batch} for i in range(m)]
+
+
+def compute_grads(cfg: ArchConfig, tc: TrainConfig, params, batch):
+    """(grads, metrics), accumulated over ``tc.microbatches`` in
+    ``accum_dtype``, averaged and cast to each parameter's type."""
+    m = tc.microbatches
+    if m == 1:
+        return _grads(cfg, tc, params, batch)
+    accum = getattr(torch, tc.accum_dtype)
+    acc_g = pytree.tree_map(lambda p: torch.zeros(p.shape, dtype=accum,
+                                                  device=p.device), params)
+    acc_m = None
+    for micro in _split(batch, m):
+        g, metrics = _grads(cfg, tc, params, micro)
+        acc_g = pytree.tree_map(lambda a, x: a + x.to(accum), acc_g, g)
+        if acc_m is None:
+            acc_m = {k: torch.zeros((), dtype=torch.float32,
+                                    device=v.device)
+                     for k, v in metrics.items()}
+        acc_m = {k: acc_m[k] + metrics[k] / m for k in acc_m}
+    g = pytree.tree_map(lambda x, p: (x / m).to(p.dtype), acc_g, params)
+    return g, acc_m
+
+
+def _apply(opt, tc: TrainConfig, params, state, grad_fn, group):
+    """The step around ``grad_fn() -> (grads, metrics)``: int8 reduce,
+    clip, update, add in fp32, count the step.  Each gradient tree is
+    referenced here alone, so rebinding ``grads`` frees the one before."""
+    grads, metrics = grad_fn()
+    new_state = dict(state)
+    if tc.grad_compression == "int8_pod":
+        # one scale a reference leaf: the blocks' scales are taken over
+        # each (L, ...) stack, as the reference's are
+        grads, ef = tree_compressed_psum(convert.stack_blocks(grads), group,
+                                         convert.stack_blocks(state["ef"]))
+        grads = pytree.tree_map(lambda g, p: g.to(p.dtype),
+                                convert.unstack_blocks(grads, params), params)
+        new_state["ef"] = convert.unstack_blocks(ef, params)
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    updates, new_state["opt"] = opt.update(grads, state["opt"], params,
+                                           state["step"])
+    del grads                          # frees a parameter-sized tree now
+    new_params = pytree.tree_map(
+        lambda p, u: (p.float() + u.float()).to(p.dtype), params, updates)
+    new_state["step"] = state["step"] + 1
+    return new_params, new_state, {**metrics, "grad_norm": gnorm}
+
+
+def make_train_step(cfg: ArchConfig, tc: TrainConfig, group=None):
+    """``step(params, state, batch) -> (params, state, metrics)``.  With
+    ``grad_compression='int8_pod'`` the gradients go through the int8
+    reduction over ``group`` (None: this rank alone, the p = 1 form)."""
+    opt = _opt(cfg, tc)
+
+    def train_step(params, state, batch):
+        return _apply(opt, tc, params, state,
+                      lambda: compute_grads(cfg, tc, params, batch), group)
+
+    return train_step
+
+
+def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group):
+    """int8-compressed data parallelism over the ranks of ``group``, the
+    counterpart of the reference's step under ``shard_map`` manual on
+    ``'pod'``: params and state are replicated, every rank is given the
+    same global batch and takes its own slice of it (positions (3,B,S)
+    on dim 1), the gradient reduction is the explicit int8 psum with
+    error feedback in ``state['ef']``, and the metrics are averaged over
+    the group."""
+    if tc.grad_compression != "int8_pod":
+        raise ValueError("make_compressed_train_step needs "
+                         "grad_compression='int8_pod'")
+    opt = _opt(cfg, tc)
+    rank = dist.get_rank(group)
+    p = dist.get_world_size(group)
+
+    def pmean(v):
+        v = v.clone()                   # "ce" and "loss" share storage
+        dist.all_reduce(v, group=group)
+        return v / p
+
+    def step_fn(params, state, batch):
+        local = _split(batch, p)[rank]
+        params, state, metrics = _apply(
+            opt, tc, params, state, lambda: _grads(cfg, tc, params, local),
+            group)
+        return params, state, {k: pmean(v) for k, v in metrics.items()}
+
+    return step_fn

@@ -439,3 +439,110 @@ def test_cuda_isoforest_own_fit_separates_outliers(sm90_device):
     ranks = np.empty_like(order, float)
     ranks[order] = np.arange(len(s))
     assert (ranks[is_out].mean() - ranks.mean()) / len(s) + 0.5 > 0.85
+
+
+# ---------------------------------------------------------------------------
+# training: no kernel of its own (impl="dense"); the card against the host
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(arch="internlm2-1.8b", **tc_kw):
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.train import step as TS
+    cfg = get_arch(arch).reduced()
+    tc = TS.TrainConfig(lr=1e-3, warmup=2, total_steps=20, **tc_kw)
+    it = make_batch_iterator(cfg, 4, 64, seed=0, device="cpu")
+    return cfg, tc, TS, [next(it) for _ in range(3)]
+
+
+def test_cuda_train_step_matches_host(sm90_device):
+    """Three steps of make_train_step from the same host-made weights:
+    loss and grad norm 1e-4 relative, params within 5e-5 (AdamW moves an
+    element by about lr)."""
+    from torch.utils import _pytree as pytree
+    cfg, tc, TS, batches = _train_setup()
+    ph, sh = TS.init_train_state(cfg, tc, seed=1, device="cpu")
+    pc = pytree.tree_map(lambda t: t.to(sm90_device), ph)
+    sc = pytree.tree_map(lambda t: t.to(sm90_device), sh)
+    step = TS.make_train_step(cfg, tc)
+    for b in batches:
+        pc, sc, mc = step(pc, sc, {k: v.to(sm90_device) for k, v in b.items()})
+        ph, sh, mh = step(ph, sh, b)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(mc[k]), float(mh[k]), rtol=1e-4)
+    assert all(t.device.type == "cuda" for t in pytree.tree_leaves((pc, sc)))
+    for a, b in zip(pytree.tree_leaves(pc), pytree.tree_leaves(ph)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=5e-5,
+                                   rtol=0)
+
+
+def test_cuda_remat_gradients_match(sm90_device):
+    """Gradients with remat on and off on the card: the recompute runs the
+    same kernels on the same inputs (1e-6 of each leaf's largest)."""
+    from torch.utils import _pytree as pytree
+    cfg = get_arch("hymba-1.5b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=2)
+    rng = np.random.default_rng(0)
+    inputs = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64),
+                                               dtype=np.int32)
+                                  ).to(sm90_device)
+              for k in ("tokens", "labels")}
+    leaves, spec = pytree.tree_flatten(params)
+    grads = {}
+    for remat in (True, False):
+        ls = [p.detach().requires_grad_() for p in leaves]
+        loss, _ = TT.loss_fn(pytree.tree_unflatten(ls, spec), cfg, inputs,
+                             remat=remat)
+        grads[remat] = torch.autograd.grad(loss, ls)
+    for a, b in zip(grads[True], grads[False]):
+        assert a.device.type == "cuda"
+        tol = 1e-6 * max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= tol
+
+
+def test_cuda_checkpoint_round_trip(sm90_device, tmp_path):
+    """Card tensors, a bf16 leaf among them, saved and restored onto the
+    card with the same bits."""
+    from repro_torch.ckpt import restore, save
+    g = torch.Generator(device=sm90_device).manual_seed(0)
+    tree = {"w": torch.randn(64, 33, device=sm90_device, generator=g),
+            "ef": torch.randn(7, 5, device=sm90_device,
+                              generator=g).to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32, device=sm90_device),
+            "blocks": {"b": torch.randn(2, 4, device=sm90_device,
+                                        generator=g)}}
+    save(str(tmp_path), 3, tree)
+    got = restore(str(tmp_path), like=tree, device=sm90_device)
+    for key in ("w", "ef", "step"):
+        assert got[key].device.type == "cuda"
+        assert got[key].dtype == tree[key].dtype
+        assert torch.equal(got[key], tree[key])
+    assert torch.equal(got["blocks"]["b"], tree["blocks"]["b"])
+
+
+def test_cuda_compressed_psum_on_one_rank_nccl(sm90_device):
+    """compressed_psum on a one-rank NCCL group (its scale goes through an
+    NCCL max) equals the no-group form, within scale/2 of g + error."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.optim import compressed_psum
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        gen = torch.Generator(device=sm90_device).manual_seed(1)
+        grad = torch.randn(37, 11, device=sm90_device, generator=gen) * 3
+        err = (torch.randn(37, 11, device=sm90_device, generator=gen)
+               * 0.01).to(torch.bfloat16)
+        avg, new_err = compressed_psum(grad, dist.group.WORLD, err)
+        avg0, new_err0 = compressed_psum(grad, None, err)
+    finally:
+        dist.destroy_process_group()
+    assert avg.device.type == "cuda"
+    assert torch.equal(avg, avg0) and torch.equal(new_err, new_err0)
+    target = grad + err.float()
+    half = float(target.abs().max()) / 127 / 2
+    assert float((avg - target).abs().max()) <= half + 1e-6
+    torch.testing.assert_close(avg + new_err, target, atol=1e-6, rtol=0)
