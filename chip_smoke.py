@@ -60,11 +60,13 @@ PEAK_FLOPS = {"fp32": 67e12,      # CUDA-core fp32: the kernel's FMAs
 ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 PRECISIONS = ("fp32", "bf16", "int8")
 # (n, f, k): the paper's largest message, the kernel's headline shape,
-# a ragged tile with tiny widths, the reference's widest test case, F and K
-# across the kernel's 32-padding, and a million rows of 7 features (no row
-# on a 16-byte boundary but every eighth)
-CHECK_SHAPES = [(10_000, 32, 25), (1_000_000, 32, 25), (257, 7, 3),
-                (513, 128, 128), (10_000, 33, 33), (1_000_000, 7, 3)]
+# the quickstart's, geo example's and calibrator's message, a ragged tile
+# with tiny widths, the reference's widest test case, F and K across the
+# kernel's 32-padding, and a million rows of 7 features (no row on a
+# 16-byte boundary but every eighth)
+CHECK_SHAPES = [(10_000, 32, 25), (1_000_000, 32, 25), (2_500, 32, 25),
+                (257, 7, 3), (513, 128, 128), (10_000, 33, 33),
+                (1_000_000, 7, 3)]
 # and x[1:] of these: a start address off the 16-byte grid
 CHECK_MISALIGNED = [(1_001, 7, 3)]
 TIMED_SHAPES = [(10_000, 32, 25), (1_000_000, 32, 25)]
@@ -81,7 +83,9 @@ LOOP_TIMEOUT_S = 120.0    # a cloud loop that fails its tasks ends here
 
 # flash attention: (b, sq, sk, h, hkv, d, causal, window).  The reference's
 # cases (tests/test_kernels.py:25-34), hymba-1.5b's two prefill waves,
-# internlm2-1.8b's heads at 4,096 tokens, a head_dim of 192; then the edges
+# internlm2-1.8b's heads at 4,096 tokens, a head_dim of 192, the LM
+# example's prefill (internlm2-100m: 12 heads on 4 KV heads, 32 tokens,
+# batch 4); then the edges
 # of the two designs' tiles: Sq != Sk without the causal mask (k padding),
 # fully masked rows (window 1, Sq 8 > Sk 4: rows 4 and up give 0), a
 # sequence that no tile size divides, and a head_dim of 256.
@@ -102,6 +106,7 @@ FLASH_CASES = [
     (4, 4096, 4096, 25, 5, 64, True, 2048),
     (1, 4096, 4096, 16, 8, 128, True, None),
     (1, 1024, 1024, 16, 2, 192, True, None),
+    (4, 32, 32, 12, 4, 64, True, None),
 ]
 FLASH_MAIN = [(4, 1024, 1024, 25, 5, 64, True, 2048),
               (4, 4096, 4096, 25, 5, 64, True, 2048)]
@@ -148,6 +153,16 @@ TRAIN_ARCH = "internlm2-1.8b"
 TRAIN_BATCH = 4
 TRAIN_SEQ = 1024
 TRAIN_STEPS = 8
+# the sharded DES: BENCH_des_scale.json's diurnal row
+DES_CELL = dict(arrival="diurnal", messages=100_000, devices=100,
+                consumers=1_000, rate_hz=20_000.0, payload_bytes=64,
+                service_s=0.001, seed=0)
+DES_DET_COLS = ("processed", "duplicates", "truncated_msgs", "makespan_s",
+                "lat_p50_s", "lat_p95_s", "wan_bytes")
+# the quickstart's messages held card against host
+QUICKSTART_CHECKED = 8
+# the LM example: --params 100 (12 layers × 768), the reference's 60 steps
+LM_STEPS = 60
 
 
 def emit(phase: str, **fields) -> None:
@@ -196,22 +211,23 @@ def bound_ms(n, f, k, precision, fused, point_bytes=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(torch, kk, n, f, k, precision, device, offset=0):
-    """Both kernels against the plain version at one shape (on ``x[offset:]``
-    of the points); returns the worst dmin error of each form where the ids
-    agree."""
+def check_kernel(torch, kk, n, f, k, precision, device, offset=0,
+                 block_n=128):
+    """Both kernels, with ``block_n``-row tiles, against the plain version at
+    one shape (on ``x[offset:]`` of the points); returns the worst dmin
+    error of each form where the ids agree."""
     x, c = blobs(torch, n, f, k, device, SEED + n + f + k)
     x = x[offset:]
     n = x.shape[0]
     prep = kk.prepare(x, c, precision)
-    runs = [kk.launch(prep, fused=True) for _ in range(3)]
+    runs = [kk.launch(prep, True, block_n) for _ in range(3)]
     ids, dmin, sums, counts = runs[0]
     for other in runs[1:]:
         for a, b in zip(runs[0], other):
             if not torch.equal(a, b):
                 raise AssertionError(f"fused outputs differ between launches "
                                      f"at {(n, f, k)} {precision}")
-    a_ids, a_dmin = kk.launch(prep, fused=False)
+    a_ids, a_dmin = kk.launch(prep, False, block_n)
     p_ids, p_dmin, p_sums, p_counts = kk.plain(prep, fused=True)
     torch.cuda.synchronize()
     if not (torch.equal(a_ids, ids) and torch.equal(a_dmin, dmin)):
@@ -250,7 +266,7 @@ def check_kernel(torch, kk, n, f, k, precision, device, offset=0):
     want = torch.zeros((k, f), dtype=torch.float64, device=device
                        ).index_add_(0, ids_l, x64)
     abs_sums = torch.zeros_like(want).index_add_(0, ids_l, x64.abs())
-    grid, rows, warps = kk.geometry(prep, True)
+    grid, rows, warps = kk.geometry(prep, True, block_n)
     chain = -(-n // (rows * grid)) * rows + warps + grid
     sum_tol = chain * 2.0 ** -24 * abs_sums + 1e-6
     if bool(((sums.double() - want).abs() > sum_tol).any()):
@@ -260,7 +276,7 @@ def check_kernel(torch, kk, n, f, k, precision, device, offset=0):
     err = float((dmin - p_dmin)[agree].abs().max()) if bool(agree.any()) \
         else 0.0
     return {"shape": [n, f, k], "offset": offset, "precision": precision,
-            "grid": grid, "sum_chain": chain,
+            "block_n": block_n, "grid": grid, "sum_chain": chain,
             "id_mismatches_at_ties": int(mism.sum()),
             "dmin_max_abs_err": err,
             "sums_max_abs_err": float((sums.double() - want).abs().max())}
@@ -1500,12 +1516,262 @@ def int8_pod(torch, TS, device):
          ef_max_abs=max(float(t.float().abs().max()) for t in ef))
 
 
+# --- the rest of the paper's framework: sharded DES, examples, B5, A6 -----
+
+
+def des_sharded():
+    """The sharded DES on the committed ``BENCH_des_scale.json`` diurnal row
+    (100,000 messages, 100 devices, 1,000 consumers, 20,000 Hz, 64 B,
+    service 1 ms, seed 0), single-process inline and at 4 shards ``mp``:
+    both must reproduce the row's deterministic columns bit for bit.  It
+    runs before anything touches CUDA, because ``mp`` forks."""
+    import os
+
+    from repro_torch.sim import shard
+    bench = json.loads((Path(__file__).resolve().parent
+                        / "BENCH_des_scale.json").read_text())
+    golden = next(r for r in bench["rows"] if r["arrival"] == "diurnal")
+    for key in ("messages", "devices", "consumers", "payload_bytes",
+                "seed"):
+        if golden[key] != DES_CELL[key]:
+            raise AssertionError(f"BENCH_des_scale.json diurnal row has "
+                                 f"{key}={golden[key]}")
+    runs = []
+    for shards, mode in ((1, "inline"), (4, "mp")):
+        row = shard.run_scale_sharded(**DES_CELL, shards=shards, mode=mode)
+        bad = {col: (row[col], golden[col]) for col in DES_DET_COLS
+               if row[col] != golden[col]}
+        if bad:
+            raise AssertionError(f"{shards} shards {mode}: {bad}")
+        runs.append({key: row[key] for key in (
+            "shards", "mode", "windows", "events", "wall_s",
+            "events_per_s", "cpu_s_total", "cpu_critical_s",
+            "agg_events_per_s")})
+    emit("des_sharded", cell=DES_CELL, cpu_count=os.cpu_count(),
+         golden={col: golden[col] for col in DES_DET_COLS},
+         golden_wall_s=golden["wall_s"], runs=runs)
+
+
+def quickstart_example(torch, core, ml, kk, device):
+    """``repro_torch.examples.quickstart.main`` at its full size (128
+    messages of 2,500 × 32, k = 25) on the card, with the k-means launch
+    counts set to 0 just before and read just after; then the quickstart's
+    first messages through the processor on the card and on the host, in
+    order, as ``check_against_plain_path`` holds them."""
+    from repro_torch.examples import quickstart
+    for counter in kk.LAUNCHES.values():
+        counter.reset()
+    out = quickstart.main(device=device)
+    torch.cuda.synchronize()
+    launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    if out["n_processed"] != out["n_messages"]:
+        raise AssertionError(f"quickstart processed {out['n_processed']}/"
+                             f"{out['n_messages']}")
+    if launches["kmeans_assign_update"] < out["n_messages"]:
+        raise AssertionError(f"quickstart launched B1 "
+                             f"{launches['kmeans_assign_update']} times")
+    gen = ml.MiniAppGenerator(n_points=2_500, n_clusters=25, seed=7)
+    msgs = [gen.sample() for _ in range(QUICKSTART_CHECKED)]
+    card = ml.KMeans(device=device).make_processor()
+    host = ml.KMeans(device="cpu").make_processor()
+    worst = 0.0
+    for msg in msgs:
+        a, b = card(None, data=msg), host(None, data=msg)
+        diff = abs(a["mean_score"] - b["mean_score"])
+        worst = max(worst, diff)
+        if a["n_outliers"] != b["n_outliers"] or \
+                diff > 1e-5 * abs(b["mean_score"]) + 0.05 * 25 / 2_500:
+            raise AssertionError(f"quickstart message: {a} vs {b}")
+    emit("quickstart_example", n_messages=out["n_messages"],
+         n_processed=out["n_processed"], wall_s=out["wall_s"],
+         msgs_per_s=out["msgs_per_s"], outliers=out["outliers"],
+         launches=launches, checked_vs_host=len(msgs),
+         mean_score_max_abs=worst)
+
+
+def geo_example(torch, kk, device):
+    """``repro_torch.examples.geo_distributed.main`` on the card: 64
+    messages of 2,500 points local, then across a ``WanShaper(80e6, rtt
+    0.150, sleep=True)``, then the PlacementEngine's ranking (k-means to
+    the edge, the auto-encoder to the cloud: the paper's Fig 3)."""
+    from repro_torch.examples import geo_distributed as geo
+    for counter in kk.LAUNCHES.values():
+        counter.reset()
+    out = geo.main(device=device)
+    torch.cuda.synchronize()
+    launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    n = out["n_messages"]
+    if out["local"]["n_processed"] != n or out["geo"]["n_processed"] != n:
+        raise AssertionError(f"geo example processed {out['local']} / "
+                             f"{out['geo']}")
+    if launches["kmeans_assign_update"] < 2 * n:
+        raise AssertionError(f"geo example launched B1 {launches}")
+    choices = {name: r["choice"] for name, r in out["rankings"].items()}
+    if choices != {"k-means": "edge", "auto-encoder": "cloud"}:
+        raise AssertionError(f"placement ranking {choices}")
+    emit("geo_example", n_messages=n, local=out["local"], geo=out["geo"],
+         rankings=out["rankings"], launches=launches)
+
+
+def autotune(torch, kk, device):
+    """B5 at the timed shapes and every precision: each tile instance held
+    against the plain version (``check_kernel``), its ids and dmin the same
+    bits as every other tile's, timed with CUDA events; then
+    ``autotune_block_n`` at the full shape and at its default 4,096-row
+    probe, from an empty cache."""
+    for n, f, k in TIMED_SHAPES:
+        x, c = blobs(torch, n, f, k, device, SEED + 1)
+        iters = 50 if n <= 100_000 else 10
+        for precision in PRECISIONS:
+            prep = kk.prepare(x, c, precision)
+            first, cands = None, {}
+            for tile in kk.TILES:
+                row = check_kernel(torch, kk, n, f, k, precision, device,
+                                   block_n=tile)
+                ids, dmin, _, _ = kk.launch(prep, True, tile)
+                a_ids, a_dmin = kk.launch(prep, False, tile)
+                torch.cuda.synchronize()
+                first = first or (ids, dmin)
+                if not all(torch.equal(a, b) for a, b in (
+                        (a_ids, ids), (a_dmin, dmin), (ids, first[0]),
+                        (dmin, first[1]))):
+                    raise AssertionError(f"ids/dmin of the {tile}-row tile "
+                                         f"differ at {(n, f, k)} "
+                                         f"{precision}")
+                cands[tile] = {
+                    "ms": time_ms(torch, lambda: kk.launch(prep, True, tile),
+                                  iters),
+                    "assign_ms": time_ms(
+                        torch, lambda: kk.launch(prep, False, tile), iters),
+                    "grid": row["grid"], "sum_chain": row["sum_chain"],
+                    "sums_max_abs_err": row["sums_max_abs_err"],
+                    "id_mismatches_at_ties": row["id_mismatches_at_ties"]}
+            kk._autotune_cache.clear()
+            t0 = time.perf_counter()
+            winner = kk.autotune_block_n(n, f, k, precision=precision,
+                                         probe_n=n, device=device)
+            sweep_s = time.perf_counter() - t0
+            winner_probe = kk.autotune_block_n(n, f, k, precision=precision,
+                                               device=device)
+            emit("autotune", shape=[n, f, k], precision=precision,
+                 candidates=cands, winner=winner, sweep_s=sweep_s,
+                 winner_at_4096_probe=winner_probe,
+                 fastest_timed=min(cands, key=lambda t: cands[t]["ms"]),
+                 default=kk.DEFAULT_BLOCK_N)
+
+
+def calibrate(torch, kk, device):
+    """``Calibrator(...).calibrate(measure_service=True)`` at 2,500 × 32,
+    every processor on the card: the fitted efficiency and sigma of the
+    five models beside the committed paper-testbed fit, and the torch
+    flop count beside the committed HLO figure."""
+    from repro_torch.cost import calibrate as cal
+    for counter in kk.LAUNCHES.values():
+        counter.reset()
+    t0 = time.perf_counter()
+    costs = cal.Calibrator(n_points=2_500, n_features=32,
+                           device=device).calibrate(measure_service=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    committed = cal.load_calibration()
+    models = {}
+    for name, mc in sorted(costs.items()):
+        ref = committed[name]
+        if not (0.0 < mc.efficiency <= 1.0 and np.isfinite(mc.sigma)
+                and mc.sigma >= 0.0 and mc.source == "measured"):
+            raise AssertionError(f"calibrate {name}: {mc}")
+        models[name] = {
+            "efficiency": mc.efficiency, "sigma": mc.sigma,
+            "paper_efficiency": ref.efficiency, "paper_sigma": ref.sigma,
+            "torch_flops_per_point": mc.kernel_flops_per_point,
+            "hlo_flops_per_point": ref.kernel_flops_per_point,
+            "flops_ratio": mc.kernel_flops_per_point
+            / ref.kernel_flops_per_point,
+            "torch_bytes_per_point": mc.kernel_bytes_per_point,
+            "hlo_bytes_per_point": ref.kernel_bytes_per_point}
+    if not 0.75 <= models["kmeans"]["flops_ratio"] <= 1.33:
+        raise AssertionError(f"k-means count {models['kmeans']}")
+    # three k-means processors, a warm-up and 5 samples each
+    if launches["kmeans_assign_update"] < 3 * 6:
+        raise AssertionError(f"calibration launched B1 {launches}")
+    emit("calibrate", wall_s=wall, models=models, launches=launches)
+
+
+def lm_example(torch, fa, device):
+    """``repro_torch.examples.train_and_serve_lm.main --params 100`` (12
+    layers × 768) on the card: a short training run whose loss must fall,
+    checkpoints, publish and fetch through the parameter service, then 8
+    requests served through ``BatchServer``, whose GQA prefill goes
+    through the flash-attention kernel (its launch count set to 0 just
+    before and read just after).  Every launch's inputs and output are
+    kept, and each output is held against the plain version on the same
+    inputs at the flash checks' fp32 tolerance (:func:`flash_tol`)."""
+    from repro_torch.examples import train_and_serve_lm as lm
+    launch, seen = fa.launch, []
+
+    def kept_launch(q, k, v, *, causal=True, window=None):
+        out = launch(q, k, v, causal=causal, window=window)
+        seen.append((q.clone(), k.clone(), v.clone(), causal, window,
+                     out.clone()))
+        return out
+
+    for counter in fa.LAUNCHES.values():
+        counter.reset()
+    fa.launch = kept_launch
+    try:
+        t0 = time.perf_counter()
+        out = lm.main(device=device, params_m=100, steps=LM_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fa.launch = launch
+    launches = {name: c.count for name, c in fa.LAUNCHES.items()}
+    worst, shapes = 0.0, set()
+    for q, k, v, causal, window, got in seen:
+        want = fa.plain(q, k, v, causal=causal, window=window)
+        diff = (got.float() - want.float()).abs()
+        worst = max(worst, float(diff.max()))
+        shapes.add((*q.shape, k.shape[2], str(q.dtype), causal, window))
+        if got.dtype != torch.float32 or bool(
+                (diff > flash_tol(want, "fp32")).any()):
+            raise AssertionError(f"LM example flash launch at "
+                                 f"{tuple(q.shape)}/{tuple(k.shape)}: "
+                                 f"max error {float(diff.max())}")
+    if len(seen) != launches["flash_attention"]:
+        raise AssertionError(f"kept {len(seen)} of {launches} launches")
+    del seen
+    cfg = lm.sized_config(100)
+    waves = len(out["waves"])
+    if launches["flash_attention"] != cfg.n_layers * waves:
+        raise AssertionError(f"flash launched {launches} for "
+                             f"{cfg.n_layers} layers × {waves} waves")
+    if out["served"] != 8 or out["tokens"] != 8 * 16:
+        raise AssertionError(f"served {out['served']}, {out['tokens']} "
+                             f"tokens")
+    hist = out["history"]
+    emit("lm_example", config=out["config"],
+         param_count=out["param_count"], steps=LM_STEPS,
+         loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"],
+         tok_per_s=hist[-1]["tok_per_s"], version=out["version"],
+         served=out["served"], tokens=out["tokens"], waves=waves,
+         prefill_ms=[w["prefill_s"] * 1e3 for w in out["waves"]],
+         decode_ms_mean=[1e3 * statistics.mean(w["decode_s"])
+                         for w in out["waves"]],
+         wall_s=wall, launches=launches,
+         flash_checked_vs_plain=launches["flash_attention"],
+         flash_max_abs_err=worst,
+         flash_shapes=sorted(map(list, shapes), key=str))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    # first, before anything touches CUDA: the sharded DES forks
+    des_sharded()
     import repro_torch.core as core
     import repro_torch.cost as cost
     import repro_torch.ml as ml
@@ -1552,6 +1818,9 @@ def main() -> int:
     timings = time_kernels(torch, kk, ops, device)
     launches = run_pipeline(torch, core, ml, kk, device)
     check_against_plain_path(torch, core, ml, device)
+    quickstart_example(torch, core, ml, kk, device)
+    geo_example(torch, kk, device)
+    autotune(torch, kk, device)
 
     worst["flash_attention"] = check_flash(torch, fa, tref, device)
     worst["ssd_chunk_scan"] = check_ssd(torch, ssd, tref, device)
@@ -1570,6 +1839,8 @@ def main() -> int:
     run_iforest_pipeline(torch, core, ml, device)
     iforest_vs_host(torch, ml, device)
     outlier_example(torch, kk, device)
+    calibrate(torch, kk, device)
+    lm_example(torch, fa, device)
 
     # training: internlm2-1.8b at full width, card against host, resume,
     # int8 compression on an NCCL group (no hand-written kernel: the
@@ -1594,7 +1865,8 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": main_row["kernel_ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"], "library_ms": None})
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "block_n": kk.DEFAULT_BLOCK_N})
     for name, source, replaces, main in (
             ("flash_attention",
              "src/repro_torch/kernels/csrc/flash_attention.cu",

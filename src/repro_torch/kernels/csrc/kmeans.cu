@@ -22,10 +22,11 @@
 // is 0.041 ms of bytes and 0.024 ms of FMAs at 1M fp32 rows.
 //
 // What the design does about it:
-// * Persistent tiles.  A tile is kRows = 128 contiguous rows and a block has
-//   64 threads (2 warps); the grid is min(tiles, SMs x resident blocks) and
-//   block b walks tiles b, b + grid, ... in order.  Each block stages the
-//   centroids, |c|^2 and the scales once.
+// * Persistent tiles.  A tile is kRows contiguous rows (64, 128 or 256; 128
+//   by default) and a block has kRows / 2 threads (kRows / 64 warps); the
+//   grid is min(tiles, SMs x resident blocks) and block b walks tiles b,
+//   b + grid, ... in order.  Each block stages the centroids, |c|^2 and the
+//   scales once.
 // * Asynchronous staging.  A tile is one flat byte range of the points in
 //   their storage type; 16-byte cp.async copies bring tile t+1 into the
 //   second slot of a two-slot ring while tile t computes (one slot where two
@@ -68,7 +69,14 @@
 //     order; then the block's copies in warp order; then the partials in
 //     block order.
 // So the fused outputs are the same bits on every launch on the same card;
-// their last bits depend on the grid, which follows the card's SM count.
+// their last bits depend on the grid, which follows the card's SM count and
+// the tile.  ids and dmin are one thread's sums over one row, so they are the
+// same bits in every tile instance.
+//
+// The tile is a template parameter.  The library holds its three instances
+// (64, 128 and 256 rows, each for the three point types and both forms), and
+// every entry point takes the tile as an argument (kernels/kmeans.py,
+// autotune_block_n).
 //
 // C interface for ctypes: every pointer and the stream are void*, and each
 // entry point returns cudaGetLastError() after its launches.
@@ -77,17 +85,36 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kRows = 128;             // rows a tile
 constexpr int kRowsPerThread = 2;      // rows a thread holds in registers
-constexpr int kThreads = kRows / kRowsPerThread;
-constexpr int kWarps = kThreads / 32;
-constexpr int kWarpRows = kRows / kWarps;   // rows a warp adds to the sums
-constexpr int kBatch = 8;              // rows of one batch of those adds
+constexpr int kBatch = 8;              // rows of one batch of the sums' adds
 constexpr int kChunk = 32;             // features / centroids a register chunk
-static_assert(kWarpRows == 64 && 32 % kBatch == 0, "ids: two per lane");
 constexpr size_t kMaxSmem = 232448;    // dynamic shared memory, sm_90 block
+
+// Threads and warps of a block whose tile is kRows rows.  Every warp adds
+// 64 rows of a tile to the sums, two ids a lane.
+template <int kRows>
+struct Tile {
+  static constexpr int kThreads = kRows / kRowsPerThread;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kWarpRows = kRows / kWarps;   // rows a warp adds
+  static_assert(kWarpRows == 64 && 32 % kBatch == 0, "ids: two per lane");
+};
+
+// fn(std::integral_constant<int, tile>()) for a tile the library
+// instantiates (64, 128 or 256 rows); `other` for any other tile.
+template <typename R, typename Fn>
+R on_tile(int tile, R other, Fn fn) {
+  switch (tile) {
+    case 64: return fn(std::integral_constant<int, 64>());
+    case 128: return fn(std::integral_constant<int, 128>());
+    case 256: return fn(std::integral_constant<int, 256>());
+    default: return other;
+  }
+}
 
 enum PointType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -108,6 +135,7 @@ struct Plan {
   size_t off_c2, off_scale, off_ids, off_acc, off_slot;
 };
 
+template <int kRows>
 Plan make_plan(int dtype, bool fused, int f, int k, int slots, int copies) {
   Plan p;
   p.slots = slots;
@@ -135,15 +163,16 @@ Plan make_plan(int dtype, bool fused, int f, int k, int slots, int copies) {
 
 // The largest layout that fits: every warp its own copy and two slots, then
 // one slot, then fewer copies; the smallest layout where none fits.
+template <int kRows>
 Plan choose_plan(int dtype, bool fused, int f, int k) {
-  for (int copies = kWarps; copies >= 1; copies /= 2) {
+  for (int copies = Tile<kRows>::kWarps; copies >= 1; copies /= 2) {
     for (int slots = 2; slots >= 1; --slots) {
-      Plan p = make_plan(dtype, fused, f, k, slots, copies);
+      Plan p = make_plan<kRows>(dtype, fused, f, k, slots, copies);
       if (p.smem <= kMaxSmem) return p;
     }
     if (!fused) break;
   }
-  return make_plan(dtype, fused, f, k, 1, 1);
+  return make_plan<kRows>(dtype, fused, f, k, 1, 1);
 }
 
 // Where byte b of a staged tile lies in its slot.  With `sw` = 7, the
@@ -179,7 +208,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // Stage the bytes [b0, b0 + nbytes) of the points into a slot, so that the
 // byte at address a lands at slot + swizzle(a - align_down(b0, 16), sw).  The
 // 16-byte aligned middle goes by cp.async (committed by the caller); the head
-// and tail bytes, which exist only where sw = 0, by plain loads.
+// and tail bytes, which exist only where sw = 0, by plain loads (at most
+// 15 each, so one thread a byte for every block size).
+template <int kThreads>
 __device__ __forceinline__ void stage_tile(unsigned char* slot,
                                            const unsigned char* b0,
                                            size_t nbytes, uint32_t sw) {
@@ -266,13 +297,16 @@ __device__ __forceinline__ void load_row(const unsigned char* tile,
   }
 }
 
-template <typename T, bool kFused>
-__global__ void __launch_bounds__(kThreads)
+template <int kRows, typename T, bool kFused>
+__global__ void __launch_bounds__(Tile<kRows>::kThreads)
     assign_kernel(const T* __restrict__ pts, const float* __restrict__ cent,
                   const float* __restrict__ c2, const float* __restrict__ scales,
                   int n, int f, int k, Plan plan, int32_t* __restrict__ ids,
                   float* __restrict__ dmin, float* __restrict__ psums,
                   float* __restrict__ pcounts) {
+  constexpr int kThreads = Tile<kRows>::kThreads;
+  constexpr int kWarps = Tile<kRows>::kWarps;
+  constexpr int kWarpRows = Tile<kRows>::kWarpRows;
   extern __shared__ __align__(128) unsigned char smem[];
   const int kp = plan.kp, fp = plan.fp;
   float* s_cent = reinterpret_cast<float*>(smem);               // (kp, fp)
@@ -298,8 +332,8 @@ __global__ void __launch_bounds__(kThreads)
   auto stage = [&](int tile, int slot) {
     const long row0 = static_cast<long>(tile) * kRows;
     const int rows = static_cast<int>(min(static_cast<long>(kRows), n - row0));
-    stage_tile(s_slot + slot * plan.slot_bytes, gbytes + row0 * row_bytes,
-               rows * row_bytes, sw);
+    stage_tile<kThreads>(s_slot + slot * plan.slot_bytes,
+                         gbytes + row0 * row_bytes, rows * row_bytes, sw);
     cp_async_commit();
   };
 
@@ -506,20 +540,21 @@ __global__ void __launch_bounds__(kReduceThreads)
 // memory on the current device.  The attribute belongs to the instance, not
 // to a shape, so it is only ever set to this one value: a call at one shape
 // (or on another thread) never lowers what a launch at another shape needs.
-template <typename T, bool kFused>
+template <int kRows, typename T, bool kFused>
 cudaError_t allow_max_smem() {
-  return cudaFuncSetAttribute(assign_kernel<T, kFused>,
+  return cudaFuncSetAttribute(assign_kernel<kRows, T, kFused>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(kMaxSmem));
 }
 
-template <typename T, bool kFused>
+template <int kRows, typename T, bool kFused>
 cudaError_t max_grid(const Plan& plan, int* out) {
-  cudaError_t err = allow_max_smem<T, kFused>();
+  cudaError_t err = allow_max_smem<kRows, T, kFused>();
   if (err != cudaSuccess) return err;
   int resident = 0, dev = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &resident, assign_kernel<T, kFused>, kThreads, plan.smem);
+      &resident, assign_kernel<kRows, T, kFused>, Tile<kRows>::kThreads,
+      plan.smem);
   if (err != cudaSuccess) return err;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -529,14 +564,15 @@ cudaError_t max_grid(const Plan& plan, int* out) {
   return resident > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-template <typename T, bool kFused>
+template <int kRows, typename T, bool kFused>
 cudaError_t launch_assign(const Plan& plan, const void* pts, const void* cent,
                           const void* c2, const void* scales, int n, int f,
                           int k, int grid, void* ids, void* dmin, void* psums,
                           void* pcounts, cudaStream_t stream) {
-  const cudaError_t err = allow_max_smem<T, kFused>();
+  const cudaError_t err = allow_max_smem<kRows, T, kFused>();
   if (err != cudaSuccess) return err;
-  assign_kernel<T, kFused><<<grid, kThreads, plan.smem, stream>>>(
+  assign_kernel<kRows, T, kFused>
+      <<<grid, Tile<kRows>::kThreads, plan.smem, stream>>>(
       static_cast<const T*>(pts), static_cast<const float*>(cent),
       static_cast<const float*>(c2), static_cast<const float*>(scales), n, f, k,
       plan, static_cast<int32_t*>(ids), static_cast<float*>(dmin),
@@ -544,28 +580,29 @@ cudaError_t launch_assign(const Plan& plan, const void* pts, const void* cent,
   return cudaGetLastError();
 }
 
-template <bool kFused>
+template <int kRows, bool kFused>
 cudaError_t dispatch(int dtype, const void* pts, const void* cent,
                      const void* c2, const void* scales, int n, int f, int k,
                      int grid, void* ids, void* dmin, void* psums,
                      void* pcounts, cudaStream_t stream) {
   const int tiles = (n + kRows - 1) / kRows;
   if (n <= 0 || grid < 1 || grid > tiles) return cudaErrorInvalidValue;
-  const Plan plan = choose_plan(dtype, kFused, f, k);
+  const Plan plan = choose_plan<kRows>(dtype, kFused, f, k);
   if (plan.smem > kMaxSmem) return cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
-      return launch_assign<float, kFused>(plan, pts, cent, c2, scales, n, f, k,
-                                          grid, ids, dmin, psums, pcounts,
-                                          stream);
+      return launch_assign<kRows, float, kFused>(plan, pts, cent, c2, scales,
+                                                 n, f, k, grid, ids, dmin,
+                                                 psums, pcounts, stream);
     case kBF16:
-      return launch_assign<uint16_t, kFused>(plan, pts, cent, c2, scales, n, f,
-                                             k, grid, ids, dmin, psums, pcounts,
-                                             stream);
+      return launch_assign<kRows, uint16_t, kFused>(plan, pts, cent, c2,
+                                                    scales, n, f, k, grid, ids,
+                                                    dmin, psums, pcounts,
+                                                    stream);
     case kI8:
-      return launch_assign<int8_t, kFused>(plan, pts, cent, c2, scales, n, f, k,
-                                           grid, ids, dmin, psums, pcounts,
-                                           stream);
+      return launch_assign<kRows, int8_t, kFused>(plan, pts, cent, c2, scales,
+                                                  n, f, k, grid, ids, dmin,
+                                                  psums, pcounts, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -575,36 +612,44 @@ cudaError_t dispatch(int dtype, const void* pts, const void* cent,
 
 extern "C" {
 
-// Dynamic shared memory one block of the given form needs at (f, k): the
-// largest layout that fits, or the smallest one when none does (more than
-// the 232,448 bytes of an sm_90 block; the wrapper raises then).
-size_t kmeans_smem_bytes(int dtype, int fused, int f, int k) {
-  return choose_plan(dtype, fused != 0, f, k).smem;
+// Dynamic shared memory one block of the given form and tile needs at
+// (f, k): the largest layout that fits, or the smallest one when none does
+// (more than the 232,448 bytes of an sm_90 block; the wrapper raises then).
+// SIZE_MAX for a tile the library does not hold.
+size_t kmeans_smem_bytes(int dtype, int fused, int f, int k, int tile) {
+  return on_tile<size_t>(tile, SIZE_MAX, [&](auto rows) {
+    return choose_plan<decltype(rows)::value>(dtype, fused != 0, f, k).smem;
+  });
 }
 
-// Rows of points a tile holds.
-int kmeans_tile_rows() { return kRows; }
+// Threads of a block of either form with `tile`-row tiles; 0 for a tile the
+// library does not hold.
+int kmeans_block_threads(int tile) {
+  return on_tile<int>(tile, 0, [](auto rows) {
+    return Tile<decltype(rows)::value>::kThreads;
+  });
+}
 
-// Threads of a block of either form.
-int kmeans_block_threads() { return kThreads; }
-
-// The most blocks a launch of the given form takes on the current device:
-// SMs x resident blocks.  A launch over n rows runs
-// min(ceil(n / tile rows), this) blocks, and the fused form takes psums
+// The most blocks a launch of the given form and tile takes on the current
+// device: SMs x resident blocks.  A launch over n rows runs
+// min(ceil(n / tile), this) blocks, and the fused form takes psums
 // (blocks, k, f) and pcounts (blocks, k).  Returns a CUDA error code, the
 // count in *out.
-int kmeans_max_grid(int dtype, int fused, int f, int k, int* out) {
-  const Plan plan = choose_plan(dtype, fused != 0, f, k);
-  if (plan.smem > kMaxSmem) return cudaErrorInvalidValue;
-  switch (dtype * 2 + (fused != 0)) {
-    case kF32 * 2: return max_grid<float, false>(plan, out);
-    case kF32 * 2 + 1: return max_grid<float, true>(plan, out);
-    case kBF16 * 2: return max_grid<uint16_t, false>(plan, out);
-    case kBF16 * 2 + 1: return max_grid<uint16_t, true>(plan, out);
-    case kI8 * 2: return max_grid<int8_t, false>(plan, out);
-    case kI8 * 2 + 1: return max_grid<int8_t, true>(plan, out);
-    default: return cudaErrorInvalidValue;
-  }
+int kmeans_max_grid(int dtype, int fused, int f, int k, int tile, int* out) {
+  return on_tile<int>(tile, cudaErrorInvalidValue, [&](auto rows) -> int {
+    constexpr int R = decltype(rows)::value;
+    const Plan plan = choose_plan<R>(dtype, fused != 0, f, k);
+    if (plan.smem > kMaxSmem) return cudaErrorInvalidValue;
+    switch (dtype * 2 + (fused != 0)) {
+      case kF32 * 2: return max_grid<R, float, false>(plan, out);
+      case kF32 * 2 + 1: return max_grid<R, float, true>(plan, out);
+      case kBF16 * 2: return max_grid<R, uint16_t, false>(plan, out);
+      case kBF16 * 2 + 1: return max_grid<R, uint16_t, true>(plan, out);
+      case kI8 * 2: return max_grid<R, int8_t, false>(plan, out);
+      case kI8 * 2 + 1: return max_grid<R, int8_t, true>(plan, out);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
 const char* kmeans_error_string(int err) {
@@ -613,24 +658,30 @@ const char* kmeans_error_string(int err) {
 
 // ids (n) int32, dmin (n) f32 for points (n, f) of type dtype (0 fp32, 1 bf16
 // bits, 2 int8 with scales (f)) against fp32 centroids (k, f) and |c|^2 (k),
-// over `grid` blocks (1 <= grid <= ceil(n / tile rows)).
-int kmeans_assign(int dtype, const void* pts, const void* cent, const void* c2,
-                  const void* scales, int n, int f, int k, int grid, void* ids,
-                  void* dmin, void* stream) {
-  return dispatch<false>(dtype, pts, cent, c2, scales, n, f, k, grid, ids,
-                         dmin, nullptr, nullptr,
-                         static_cast<cudaStream_t>(stream));
+// in tiles of `tile` rows over `grid` blocks (1 <= grid <= ceil(n / tile)).
+int kmeans_assign(int dtype, int tile, const void* pts, const void* cent,
+                  const void* c2, const void* scales, int n, int f, int k,
+                  int grid, void* ids, void* dmin, void* stream) {
+  return on_tile<int>(tile, cudaErrorInvalidValue, [&](auto rows) -> int {
+    return dispatch<decltype(rows)::value, false>(
+        dtype, pts, cent, c2, scales, n, f, k, grid, ids, dmin, nullptr,
+        nullptr, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // The fused form: also sums (k, f) and counts (k), through the scratch psums
 // (grid, k, f) and pcounts (grid, k).
-int kmeans_assign_update(int dtype, const void* pts, const void* cent,
-                         const void* c2, const void* scales, int n, int f, int k,
-                         int grid, void* ids, void* dmin, void* psums,
-                         void* pcounts, void* sums, void* counts, void* stream) {
+int kmeans_assign_update(int dtype, int tile, const void* pts,
+                         const void* cent, const void* c2, const void* scales,
+                         int n, int f, int k, int grid, void* ids, void* dmin,
+                         void* psums, void* pcounts, void* sums, void* counts,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch<true>(dtype, pts, cent, c2, scales, n, f, k, grid,
-                                   ids, dmin, psums, pcounts, s);
+  const int err = on_tile<int>(tile, cudaErrorInvalidValue, [&](auto rows) {
+    return static_cast<int>(dispatch<decltype(rows)::value, true>(
+        dtype, pts, cent, c2, scales, n, f, k, grid, ids, dmin, psums,
+        pcounts, s));
+  });
   if (err != cudaSuccess) return err;
   const int kf = k * f;
   reduce_partials<<<(kf + k + kReduceThreads - 1) / kReduceThreads,

@@ -15,9 +15,13 @@ beside ``repro.sim``.
   hybrid placement × WAN bands × failure schedules) replayed in
   milliseconds of wall time with bit-reproducible metrics.
 
+* :mod:`repro_torch.sim.shard` — the sharded DES: conservative
+  time-window parallel simulation across processes (device-partition,
+  tier and drift cuts), bit-identical to the single-process run.
+
 ``scenarios`` is re-exported lazily (PEP 562) because it imports
-``repro_torch.core`` which itself imports :mod:`repro_torch.sim.clock`.
-The sharded runner (``repro.sim.shard``) is not ported yet.
+``repro_torch.core`` which itself imports :mod:`repro_torch.sim.clock`;
+``shard`` is imported by name (``from repro_torch.sim import shard``).
 """
 from repro_torch.sim.clock import (SYSTEM_CLOCK, Clock, SimClock,
                                    SystemClock, as_clock)

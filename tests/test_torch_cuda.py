@@ -7,6 +7,8 @@ The auto-encoder and the isolation forest, which have no kernel of their
 own, are held against the same processors on the host.  Every test skips
 on a host without a Hopper card; ``chip_smoke.py`` drives the same
 comparisons at the main path's full sizes."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -187,6 +189,131 @@ def test_cuda_kmeans_shapes_alternate(sm90_device, fused, precision):
         if fused:
             np.testing.assert_array_equal(counts.cpu().numpy(),
                                           p_counts.cpu().numpy())
+
+
+# B5: every tile instance (block_n 64, 128, 256).  ids and dmin are one
+# thread's sums over one row, so every tile gives the same bits.  The sums
+# differ in their last bits with the grid and the tile: each is held
+# within the fp32 bound of its own longest chain of additions,
+# chain · 2^-24 · Σ|x| of a float64 sum over its ids, as chip_smoke.py does
+TILE_CASES = [(257, 7, 3), (2500, 32, 25), (513, 128, 128), (300_000, 32, 25)]
+
+
+def _sums_within_chain(prep, ids, sums, fused_geometry):
+    grid, rows, warps = fused_geometry
+    n = ids.shape[0]
+    xv = tk.point_values(prep).double()
+    k, f = prep.centroids.shape
+    want = torch.zeros((k, f), dtype=torch.float64,
+                       device=xv.device).index_add_(0, ids.long(), xv)
+    abs_sums = torch.zeros_like(want).index_add_(0, ids.long(), xv.abs())
+    chain = -(-n // (rows * grid)) * rows + warps + grid
+    tol = chain * 2.0 ** -24 * abs_sums + 1e-6
+    assert bool(((sums.double() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_cuda_kmeans_tiles_match_plain(sm90_device, case, precision):
+    n, f, k = case
+    x, c = _blob(case, sm90_device)
+    prep = tk.prepare(x, c, precision)
+    p_ids, p_dmin, _, _ = tk.plain(prep, fused=True)
+    first = None
+    for block_n in tk.TILES:
+        a_ids, a_dmin = ops.kmeans_assign(x, c, precision=precision,
+                                          block_n=block_n)
+        if first is None:
+            first = (a_ids, a_dmin)
+        if tk.smem_bytes(precision, True, f, k, block_n) > \
+                tk.MAX_SMEM_BYTES:
+            # (513, 128, 128) fp32 is past the 256-row tile's fused limit
+            with pytest.raises(ValueError, match="shared memory"):
+                ops.kmeans_assign_update(x, c, precision=precision,
+                                         block_n=block_n)
+            torch.cuda.synchronize()
+            assert torch.equal(a_ids, first[0])
+            assert torch.equal(a_dmin, first[1])
+            continue
+        ids, dmin, sums, counts = ops.kmeans_assign_update(
+            x, c, precision=precision, block_n=block_n)
+        torch.cuda.synchronize()
+        assert torch.equal(a_ids, ids) and torch.equal(a_dmin, dmin)
+        assert torch.equal(ids, first[0]) and torch.equal(dmin, first[1])
+        np.testing.assert_array_equal(ids.cpu().numpy(), p_ids.cpu().numpy())
+        np.testing.assert_allclose(dmin.cpu().numpy(), p_dmin.cpu().numpy(),
+                                   **DMIN_TOL)
+        assert torch.equal(counts, torch.bincount(ids.long(),
+                                                  minlength=k).float())
+        _sums_within_chain(prep, ids, sums,
+                           tk.geometry(prep, True, block_n))
+
+
+def test_cuda_kmeans_library_holds_every_tile(sm90_device):
+    """One library holds the three tile instances; any other tile is
+    refused at the C interface as well as by the wrapper."""
+    lib = tk._library()
+    for block_n in tk.TILES:
+        assert lib.kmeans_block_threads(block_n) == block_n // 2
+        assert tk.smem_bytes("fp32", True, 32, 25, block_n) \
+            <= tk.MAX_SMEM_BYTES
+    assert lib.kmeans_block_threads(96) == 0
+    assert lib.kmeans_smem_bytes(0, 1, 32, 25, 96) == 2 ** 64 - 1
+    out = ctypes.c_int(0)
+    assert lib.kmeans_max_grid(0, 1, 32, 25, 96, ctypes.byref(out)) != 0
+
+
+@pytest.mark.parametrize("precision,fused,f,limits", [
+    # the largest K each tile (64, 128, 256 rows) takes, documented in
+    # kernels/kmeans.py and ROADMAP B1/B2; 128 rows are PR 16's limits
+    ("fp32", True, 32, (832, 800, 736)),
+    ("fp32", True, 128, (192, 160, 96)),
+    ("fp32", False, 32, (1696, 1632, 1504)),
+    ("fp32", False, 128, (384, 320, 192)),
+])
+def test_cuda_tile_shape_limits(sm90_device, precision, fused, f, limits):
+    for block_n, k in zip(tk.TILES, limits):
+        assert tk.smem_bytes(precision, fused, f, k, block_n) \
+            <= tk.MAX_SMEM_BYTES
+        assert tk.smem_bytes(precision, fused, f, k + 1, block_n) \
+            > tk.MAX_SMEM_BYTES
+
+
+def test_cuda_autotune_skips_a_tile_that_cannot_fit(sm90_device):
+    # fp32 K = 780 at F = 32: past the 256-row tile's fused limit (736),
+    # inside the 128- and 64-row tiles' (800, 832)
+    tk._autotune_cache.clear()
+    before = tk.LAUNCHES["kmeans_assign_update"].count
+    best = tk.autotune_block_n(4096, 32, 780, precision="fp32",
+                               candidates=(256, 128, 64))
+    assert best in (128, 64)
+    assert tk.LAUNCHES["kmeans_assign_update"].count - before == 2 * 3
+    tk._autotune_cache.clear()
+    with pytest.raises(ValueError, match="no block_n"):
+        tk.autotune_block_n(4096, 32, 900, precision="fp32")
+
+
+def test_cuda_kmeans_shape_past_a_tile_limit_raises(sm90_device):
+    # fp32 K = 780 at F = 32: past the 256-row tile's fused limit (736)
+    x, c = _blob((4096, 32, 780), sm90_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.kmeans_assign_update(x, c, block_n=256)
+    ids, _, _, counts = ops.kmeans_assign_update(x, c, block_n=128)
+    torch.cuda.synchronize()
+    assert float(counts.sum()) == 4096.0
+
+
+def test_cuda_autotune_returns_a_candidate_and_caches(sm90_device):
+    tk._autotune_cache.clear()
+    before = tk.LAUNCHES["kmeans_assign_update"].count
+    best = tk.autotune_block_n(10_000, 32, 25, precision="bf16")
+    assert best in tk.AUTOTUNE_CANDIDATES
+    launched = tk.LAUNCHES["kmeans_assign_update"].count - before
+    assert launched == len(tk.AUTOTUNE_CANDIDATES) * 3   # warm-up + 2 timed
+    key = (4096, 32, 25, "bf16", torch.cuda.get_device_name(sm90_device))
+    assert tk._autotune_cache[key] == best
+    assert tk.autotune_block_n(10_000, 32, 25, precision="bf16") == best
+    assert tk.LAUNCHES["kmeans_assign_update"].count - before == launched
 
 
 # (b, sq, sk, h, hkv, d, causal, window): tests/test_kernels.py's cases, a

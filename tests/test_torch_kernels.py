@@ -205,3 +205,100 @@ def test_build_names_a_missing_compiler(monkeypatch):
     target = build._target(build.CSRC / "kmeans.cu")
     assert target.parent == build.BUILD_DIR
     assert target.name.startswith("libkmeans-") and target.suffix == ".so"
+
+
+# ---------------------------------------------------------------------------
+# B5: the tile (block_n) and its autotune, tests/test_kernels.py:279-302
+# ---------------------------------------------------------------------------
+
+
+def _growing_clock(state):
+    """An injected timer whose ticks grow, so that the earlier a candidate
+    is timed the faster it looks: the first candidate timed wins."""
+    def clock():
+        state["calls"] += 1
+        state["t"] += state["step"]
+        state["step"] *= 2.0
+        return state["t"]
+    return clock
+
+
+def test_autotune_block_n_first_candidate_wins_and_caches():
+    state = {"t": 0.0, "step": 1.0, "calls": 0}
+    tk._autotune_cache.clear()
+    best = tk.autotune_block_n(1000, 32, 25, precision="fp32",
+                               candidates=(128, 256), probe_n=512,
+                               timer=_growing_clock(state), device="cpu")
+    assert best == 128
+    n_calls = state["calls"]
+    assert n_calls == 2 * 2 * 2          # two timer reads, two repeats, two tiles
+    again = tk.autotune_block_n(1000, 32, 25, precision="fp32",
+                                candidates=(128, 256), probe_n=512,
+                                timer=_growing_clock(state), device="cpu")
+    assert again == best and state["calls"] == n_calls     # cache hit
+    assert tk._autotune_cache[(512, 32, 25, "fp32", "cpu")] == 128
+    # the reference's sweep under the same clock picks the same candidate
+    jk._autotune_cache.clear()
+    ref_state = {"t": 0.0, "step": 1.0, "calls": 0}
+    assert jk.autotune_block_n(1000, 32, 25, precision="fp32",
+                               interpret=True, candidates=(128, 256),
+                               probe_n=512,
+                               timer=_growing_clock(ref_state)) == best
+
+
+def _fits_below(limit_k):
+    """A stand-in for the card's shared-memory check: the 256-row tile
+    holds the fused form up to ``limit_k`` centroids, the others any K
+    (the card's real limits: tests/test_torch_cuda.py)."""
+    def fits(precision, f, k, block_n, device):
+        return block_n != 256 or k <= limit_k
+    return fits
+
+
+def test_autotune_block_n_skips_a_candidate_that_cannot_fit(monkeypatch):
+    monkeypatch.setattr(tk, "_fits", _fits_below(736))
+    state = {"t": 0.0, "step": 1.0, "calls": 0}
+    tk._autotune_cache.clear()
+    best = tk.autotune_block_n(600, 32, 780, precision="fp32",
+                               candidates=(256, 128, 64), probe_n=256,
+                               timer=_growing_clock(state), device="cpu")
+    assert best == 128
+    assert state["calls"] == 2 * 2 * 2   # only the two tiles that fit
+
+
+def test_autotune_block_n_raises_when_no_candidate_fits(monkeypatch):
+    monkeypatch.setattr(tk, "_fits", lambda *args: False)
+    tk._autotune_cache.clear()
+    state = {"t": 0.0, "step": 1.0, "calls": 0}
+    with pytest.raises(ValueError, match="no block_n"):
+        tk.autotune_block_n(600, 32, 900, precision="fp32",
+                            candidates=tk.AUTOTUNE_CANDIDATES,
+                            timer=_growing_clock(state), device="cpu")
+    assert state["calls"] == 0
+
+
+def test_autotune_block_n_on_the_cpu_checks_no_shared_memory():
+    # the plain version has no tile limit: fp32 K = 900 at F = 32, past
+    # every tile's fused limit on the card, sweeps every candidate here
+    assert all(tk._fits("fp32", 32, 900, c, torch.device("cpu"))
+               for c in tk.TILES)
+    state = {"t": 0.0, "step": 1.0, "calls": 0}
+    tk._autotune_cache.clear()
+    assert tk.autotune_block_n(600, 32, 900, precision="fp32",
+                               candidates=tk.AUTOTUNE_CANDIDATES,
+                               probe_n=64, timer=_growing_clock(state),
+                               device="cpu") == 64
+    assert state["calls"] == 2 * 2 * 3
+
+
+def test_block_n_is_checked_and_ignored_by_the_plain_version():
+    pts, cent = _blob((300, 33, 33))
+    x, c = torch.from_numpy(pts), torch.from_numpy(cent)
+    want = ops.kmeans_assign_update(x, c, precision="int8")
+    for block_n in tk.TILES:
+        got = ops.kmeans_assign_update(x, c, precision="int8",
+                                       block_n=block_n)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="block_n"):
+        tk.kmeans_assign(x, c, block_n=96)
