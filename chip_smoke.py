@@ -35,6 +35,17 @@ one-rank NCCL group.  Training launches no hand-written kernel: the
 reference trains with ``impl="dense"`` and its Pallas kernels have no
 gradient.
 
+Then the rest of the zoo, each phase with the flash launch count set to 0
+just before it and read just after: minicpm3-4b (MLA) at full width and
+depth served in 2 waves of 4 requests (1,024 and 2,048 tokens, no flash
+launch: its attention is dense, as in the reference), its absorbed decode
+held against ``forward``, and its 2-layer cut card against host;
+qwen2-vl-2b at full width and depth on patch embeddings with M-RoPE
+positions (a 16 × 16 image grid and 768 text positions, 4 sequences, 16
+decode steps) against its dense path; qwen3-moe-235b-a22b at full width
+with 4 of its 94 layers served in 2 waves (512 and 1,024 tokens) against
+its dense path, and one of its MoE layers against an every-expert form.
+
 Each phase prints one JSON line; the card's ``nvidia-smi`` name and power
 limit, then a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line come last.  Any failure raises and
@@ -107,9 +118,16 @@ FLASH_CASES = [
     (1, 4096, 4096, 16, 8, 128, True, None),
     (1, 1024, 1024, 16, 2, 192, True, None),
     (4, 32, 32, 12, 4, 64, True, None),
+    (4, 1024, 1024, 12, 2, 128, True, None),
+    (4, 512, 512, 64, 4, 128, True, None),
+    (4, 1024, 1024, 64, 4, 128, True, None),
 ]
 FLASH_MAIN = [(4, 1024, 1024, 25, 5, 64, True, 2048),
               (4, 4096, 4096, 25, 5, 64, True, 2048)]
+# the zoo's prefills through the flash kernel: qwen2-vl-2b (12 heads on 2,
+# GQA ratio 6) and qwen3-moe's 1,024-token wave (64 on 4, ratio 16)
+FLASH_ZOO = [(4, 1024, 1024, 12, 2, 128, True, None),
+             (4, 1024, 1024, 64, 4, 128, True, None)]
 # SSD: (b, s, nh, hd, g, ds, chunk).  The reference's cases
 # (tests/test_kernels.py:99-106), hymba-1.5b's widest wave, mamba2-130m's
 # widths, and a ragged chunk of 200; then the edges of the kernel's tiles:
@@ -163,6 +181,24 @@ DES_DET_COLS = ("processed", "duplicates", "truncated_msgs", "makespan_s",
 QUICKSTART_CHECKED = 8
 # the LM example: --params 100 (12 layers × 768), the reference's 60 steps
 LM_STEPS = 60
+# the rest of the zoo: minicpm3-4b (MLA) served at full width and depth,
+# 2 waves of 4 requests; its 2-layer cut card against host; qwen2-vl-2b
+# (M-RoPE, patch embeddings) at full width and depth; qwen3-moe at full
+# width with 4 of its 94 layers (45 GB of fp32 weights)
+ZOO_NEW_TOKENS = 16
+MLA_ARCH = "minicpm3-4b"
+MLA_WAVES = (1024, 2048)
+MLA_HOST_PROMPT = 128
+MLA_HOST_STEPS = 8
+VLM_ARCH = "qwen2-vl-2b"
+VLM_BATCH = 4
+VLM_GRID = 16                # a 16 × 16 image grid of patch embeddings
+VLM_TEXT = 768
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_LAYERS = 4
+MOE_WAVES = (512, 1024)
+MOE_CHECK_TOKENS = 256
+MOE_TOL = 2e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -638,7 +674,7 @@ def time_attention_ssd(torch, fa, ssd, device):
     """Kernel, plain and library times at the serving path's shapes, fp32
     and bf16: CUDA events, median of 5 repeats."""
     rows = []
-    for case in FLASH_MAIN:
+    for case in FLASH_MAIN + FLASH_ZOO:
         causal, window = case[6], case[7]
         for dtype in ("fp32", "bf16"):
             q, k, v = flash_inputs(torch, case, dtype, device, 11)
@@ -680,18 +716,19 @@ def time_attention_ssd(torch, fa, ssd, device):
     return rows
 
 
-def _top2_gap(torch, logits, vocab):
-    top = torch.topk(logits[..., :vocab].float(), 2, dim=-1).values
-    return (top[..., 0] - top[..., 1]).cpu()
+def _top2(torch, logits, vocab):
+    """The two largest logits of each row, on the host."""
+    return torch.topk(logits[..., :vocab].float(), 2, dim=-1).values.cpu()
 
 
-def run_server(torch, serve, params, cfg, device, impl, prompts):
+def run_server(torch, serve, params, cfg, device, impl, prompts,
+               max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW_TOKENS):
     """Both waves through a fresh ``BatchServer``, capturing each wave's
-    last-position prefill logits, its prefill cache and the top-two logit
-    gap of every greedy token."""
+    last-position prefill logits, its prefill cache, the two largest
+    logits of every greedy token, and the first request's logits at
+    every step."""
     server = serve.BatchServer(params, cfg, n_slots=SERVE_SLOTS,
-                               max_len=SERVE_MAX_LEN, impl=impl,
-                               device=device)
+                               max_len=max_len, impl=impl, device=device)
     captured = []
     prefill, decode = server._prefill1, server._decode
 
@@ -699,24 +736,55 @@ def run_server(torch, serve, params, cfg, device, impl, prompts):
         logits, cache = prefill(p, inputs)
         captured.append({"logits": logits[:, -1].float().clone(),
                          "cache": {k: v.clone() for k, v in cache.items()},
-                         "gaps": [_top2_gap(torch, logits[:, -1],
-                                            cfg.vocab_size)]})
+                         "tops": [_top2(torch, logits[:, -1],
+                                        cfg.vocab_size)],
+                         "rows": [logits[0, -1].float().clone()]})
         return logits, cache
 
     def capture_decode(p, cache, inputs):
         logits, cache = decode(p, cache, inputs)
-        captured[-1]["gaps"].append(_top2_gap(torch, logits[:, 0],
-                                              cfg.vocab_size))
+        captured[-1]["tops"].append(_top2(torch, logits[:, 0],
+                                          cfg.vocab_size))
+        captured[-1]["rows"].append(logits[0, 0].float().clone())
         return logits, cache
 
     server._prefill1, server._decode = capture_prefill, capture_decode
     for i, pr in enumerate(prompts):
         server.submit(serve.Request(request_id=f"req-{i}", prompt=pr,
-                                    max_new_tokens=SERVE_NEW_TOKENS))
+                                    max_new_tokens=new_tokens))
     t0 = time.monotonic()
     done = server.run(max_requests=len(prompts), idle_timeout_s=1.0)
     torch.cuda.synchronize()
     return server, done, captured, time.monotonic() - t0
+
+
+def check_served(done, n_requests, cfg, new_tokens):
+    """Every request completed with ``new_tokens`` tokens in the
+    vocabulary; returns the token count."""
+    n_tok = sum(len(r.result_tokens) for r in done)
+    if len(done) != n_requests or n_tok != n_requests * new_tokens:
+        raise AssertionError(f"served {len(done)} requests, {n_tok} tokens")
+    for r in done:
+        if not all(0 <= t < cfg.vocab_size for t in r.result_tokens):
+            raise AssertionError(f"token out of the vocabulary in {r}")
+    return n_tok
+
+
+def serve_stats(torch, server, done, n_tok, wall, device):
+    """The serving metrics of one ``run_server`` run, as ``serve``
+    reports them."""
+    first = np.array([r.t_first_token - r.t_submit for r in done])
+    return dict(
+        requests=len(done), tokens=n_tok, wall_s=wall,
+        tokens_per_s=n_tok / wall,
+        first_token_ms_mean=float(first.mean() * 1e3),
+        first_token_ms_p95=float(np.percentile(first, 95) * 1e3),
+        prefill_ms=[w["prefill_s"] * 1e3 for w in server.waves],
+        decode_ms_per_step=[float(np.mean(w["decode_s"]) * 1e3)
+                            for w in server.waves],
+        waves=[[w["batch"], w["prompt_len"]] for w in server.waves],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(device)
+        / 1e9)
 
 
 def serve_hymba(torch, serve, T, fa, ssd, device):
@@ -748,29 +816,16 @@ def serve_hymba(torch, serve, T, fa, ssd, device):
     if launches != {"flash_attention": want, "ssd_chunk_scan": want}:
         raise AssertionError(f"serve launches {launches}, expected {want} "
                              f"of each (waves x layers)")
-    n_tok = sum(len(r.result_tokens) for r in done)
-    if len(done) != len(prompts) or n_tok != len(prompts) * SERVE_NEW_TOKENS:
-        raise AssertionError(f"served {len(done)} requests, {n_tok} tokens")
-    for r in done:
-        if not all(0 <= t < cfg.vocab_size for t in r.result_tokens):
-            raise AssertionError(f"token out of the vocabulary in {r}")
+    stats = serve_stats(torch, server, done,
+                        check_served(done, len(prompts), cfg,
+                                     SERVE_NEW_TOKENS), wall, device)
     for w in captured:
         if not bool(torch.isfinite(w["logits"]).all()) or not all(
                 bool(torch.isfinite(v.float()).all())
                 for v in w["cache"].values()):
             raise AssertionError("non-finite prefill logits or cache")
-    first = np.array([r.t_first_token - r.t_submit for r in done])
-    emit("serve", arch=SERVE_ARCH, params=n_params, init_s=init_s,
-         requests=len(done), tokens=n_tok, wall_s=wall,
-         tokens_per_s=n_tok / wall,
-         first_token_ms_mean=float(first.mean() * 1e3),
-         first_token_ms_p95=float(np.percentile(first, 95) * 1e3),
-         prefill_ms=[w["prefill_s"] * 1e3 for w in server.waves],
-         decode_ms_per_step=[float(np.mean(w["decode_s"]) * 1e3)
-                             for w in server.waves],
-         waves=[[w["batch"], w["prompt_len"]] for w in server.waves],
-         max_memory_allocated_gb=torch.cuda.max_memory_allocated(device)
-         / 1e9, launches=launches)
+    emit("serve", arch=SERVE_ARCH, params=n_params, init_s=init_s, **stats,
+         launches=launches)
     return params, cfg, prompts, done, captured, launches
 
 
@@ -803,23 +858,32 @@ def serve_vs_plain(torch, serve, fa, ssd, params, cfg, prompts, done,
             if bool((diff > MODEL_TOL + (MODEL_TOL + slack) * cb.abs()).any()):
                 raise AssertionError(f"wave {w}: cache {name} differs by "
                                      f"{float(diff.max())}")
-    near_ties, compared = 0, 0
-    wave_of = [i // SERVE_SLOTS for i in range(len(prompts))]
-    for i, (a, b) in enumerate(zip(done, done_p)):
-        gaps = captured_p[wave_of[i]]["gaps"]
-        for t, (ta, tb) in enumerate(zip(a.result_tokens, b.result_tokens)):
-            compared += 1
-            if ta != tb:
-                gap = float(gaps[t][i % SERVE_SLOTS])
-                if gap >= NEAR_TIE:
-                    raise AssertionError(f"{a.request_id} token {t}: "
-                                         f"{ta} vs {tb}, gap {gap}")
-                near_ties += 1
-                break           # later tokens follow different histories
+    compared, near_ties = compare_tokens(done, done_p, captured_p,
+                                         lambda top1: NEAR_TIE)
     emit("serve_vs_plain", wall_s=wall, max_abs_err=errs,
          tokens_compared=compared, near_ties=near_ties,
          tokens_equal=sum(a.result_tokens == b.result_tokens
                           for a, b in zip(done, done_p)))
+
+
+def compare_tokens(done, done_p, captured_p, tol):
+    """Greedy tokens of two server runs over the same waves, equal up to
+    the first place where the plain run's top two logits lie within
+    ``tol(top1)`` of each other (later tokens follow other histories);
+    raises on a mismatch past that.  Returns (compared, near ties)."""
+    near_ties, compared = 0, 0
+    for i, (a, b) in enumerate(zip(done, done_p)):
+        tops = captured_p[i // SERVE_SLOTS]["tops"]
+        for t, (ta, tb) in enumerate(zip(a.result_tokens, b.result_tokens)):
+            compared += 1
+            if ta != tb:
+                top1, top2 = (float(v) for v in tops[t][i % SERVE_SLOTS])
+                if top1 - top2 >= tol(top1):
+                    raise AssertionError(f"{a.request_id} token {t}: "
+                                         f"{ta} vs {tb}, gap {top1 - top2}")
+                near_ties += 1
+                break
+    return compared, near_ties
 
 
 def check_against_plain_path(torch, core, ml, device):
@@ -1764,6 +1828,360 @@ def lm_example(torch, fa, device):
          flash_shapes=sorted(map(list, shapes), key=str))
 
 
+def serve_mla(torch, serve, T, fa, device):
+    """minicpm3-4b (MLA) at full width and depth (62 layers × 2,560,
+    random fp32 weights from the seed, bf16 cache) through
+    ``BatchServer(impl="kernel")``: 2 waves of 4 requests, 1,024- and
+    2,048-token prompts, 16 new tokens each, the flash launch count set to
+    0 just before and read just after; it must stay 0, since MLA's
+    ``"kernel"`` is dense attention, as the reference's ``"pallas"`` is.
+    Then the first request again with an fp32 cache, prefill and absorbed
+    decode against ``forward`` over prompt + generated tokens (the
+    expanded form) within 2e-3 of the logits' largest magnitude; the
+    served (bf16 cache) logits' distance from it is reported."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import prefill_with_cache
+    cfg = get_arch(MLA_ARCH)
+    max_len = max(MLA_WAVES) + ZOO_NEW_TOKENS
+    t0 = time.monotonic()
+    params = T.init_params(cfg, device=device, dtype=torch.float32,
+                           seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in MLA_WAVES for _ in range(SERVE_SLOTS)]
+    run_server(torch, serve, params, cfg, device, "kernel",
+               [prompts[0][:64]], max_len=max_len, new_tokens=2)
+    counter = fa.LAUNCHES["flash_attention"]
+    torch.cuda.reset_peak_memory_stats(device)
+    counter.reset()
+    server, done, captured, wall = run_server(
+        torch, serve, params, cfg, device, "kernel", prompts,
+        max_len=max_len, new_tokens=ZOO_NEW_TOKENS)
+    launches = {"flash_attention": counter.count}
+    stats = serve_stats(torch, server, done,
+                        check_served(done, len(prompts), cfg,
+                                     ZOO_NEW_TOKENS), wall, device)
+    if launches["flash_attention"] != 0:
+        raise AssertionError(f"MLA launched the flash kernel: {launches}")
+
+    r = done[0]
+    n = len(r.prompt)
+    seq = torch.from_numpy(np.concatenate(
+        [r.prompt, r.result_tokens[:-1]]).astype(np.int64))[None].to(device)
+    with torch.inference_mode():
+        full, _ = T.forward(params, cfg, {"tokens": seq}, impl="kernel")
+        full = full[0, n - 1:].float()
+        logits, cache = prefill_with_cache(
+            params, cfg, {"tokens": seq[:, :n]}, max_len=seq.shape[1],
+            impl="kernel", cache_dtype=torch.float32)
+        rows = [logits[0, -1].float()]
+        for i in range(ZOO_NEW_TOKENS - 1):
+            logits, cache = T.decode_step(params, cfg, cache, {
+                "tokens": seq[:, n + i:n + i + 1], "length": n + i})
+            rows.append(logits[0, 0].float())
+    got, served = torch.stack(rows), torch.stack(captured[0]["rows"])
+    scale = float(full.abs().max())
+    err = float((got - full).abs().max())
+    if not np.isfinite(err) or err > MODEL_TOL * scale:
+        raise AssertionError(f"MLA absorbed decode vs forward: {err} > "
+                             f"{MODEL_TOL} × {scale}")
+    emit("serve_mla", arch=MLA_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=T.param_count(params), init_s=init_s,
+         cache="bf16", **stats, launches=launches,
+         flash_zero_because="the reference's mla_forward runs dense "
+         "attention for every impl but chunked; the flash kernel never "
+         "sees MLA's 96-wide q/k and 64-wide v",
+         decode_vs_forward_max_abs=err, logits_max_abs=scale,
+         tol=MODEL_TOL * scale, positions_checked=ZOO_NEW_TOKENS,
+         served_bf16_vs_forward_max_abs=float((served - full).abs().max()))
+    del params, cache, full, captured
+    torch.cuda.empty_cache()
+
+
+def mla_vs_host(torch, T, device):
+    """minicpm3-4b at full width with 2 layers: one parameter tree made on
+    the host from the seed and copied to the card; a 128-token prefill
+    and 8 decode steps (fp32 cache) on both.  Logits and the ``ckv`` /
+    ``krope`` caches within 2e-3 of each one's largest magnitude."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import prefill_with_cache
+    cfg = dataclasses.replace(get_arch(MLA_ARCH), n_layers=2)
+    host = T.init_params(cfg, device="cpu", seed=SEED + 2)
+    card = pytree.tree_map(lambda t: t.to(device), host)
+    n, steps = MLA_HOST_PROMPT, MLA_HOST_STEPS
+    toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        1, cfg.vocab_size, (2, n + steps)))
+    out = {}
+    for name, params, dev in (("card", card, device), ("host", host, "cpu")):
+        seq = toks.to(dev)
+        with torch.inference_mode():
+            logits, cache = prefill_with_cache(
+                params, cfg, {"tokens": seq[:, :n]}, max_len=n + steps,
+                impl="kernel", cache_dtype=torch.float32)
+            rows = [logits[:, -1]]
+            for i in range(steps):
+                logits, cache = T.decode_step(params, cfg, cache, {
+                    "tokens": seq[:, n + i:n + i + 1], "length": n + i})
+                rows.append(logits[:, 0])
+        if name == "card":
+            on_card(torch, cache, "the MLA cache")
+        out[name] = {"logits": torch.stack(rows, 1).float().cpu(),
+                     **{k: v.float().cpu() for k, v in cache.items()}}
+    errs = {}
+    for key, want in out["host"].items():
+        diff = float((out["card"][key] - want).abs().max())
+        scale = float(want.abs().max())
+        errs[key] = {"max_abs": diff, "scale": scale}
+        if not np.isfinite(diff) or diff > MODEL_TOL * scale:
+            raise AssertionError(f"MLA card vs host, {key}: {diff} > "
+                                 f"{MODEL_TOL} × {scale}")
+    emit("mla_vs_host", arch=MLA_ARCH, reduced="n_layers 62 -> 2",
+         d_model=cfg.d_model, batch=2, prompt=n, decode_steps=steps,
+         cache="fp32", errors=errs, tol_of_scale=MODEL_TOL)
+    del card, host
+
+
+def vlm_positions(n_text, batch):
+    """qwen2-vl's M-RoPE positions (3, B, S): a 16 × 16 image grid at
+    t = 0 with (h, w) grid positions, then text continuing on all three
+    axes from the grid's maximum + 1."""
+    hh, ww = np.meshgrid(np.arange(VLM_GRID), np.arange(VLM_GRID),
+                         indexing="ij")
+    img = np.stack([np.zeros(VLM_GRID ** 2, np.int64), hh.ravel(),
+                    ww.ravel()])
+    txt = np.tile(np.arange(VLM_GRID, VLM_GRID + n_text), (3, 1))
+    pos = np.concatenate([img, txt], axis=1)
+    if (pos[0] == pos[1]).all() or (pos[1] == pos[2]).all():
+        raise AssertionError("the M-RoPE axes do not differ")
+    return np.repeat(pos[:, None], batch, axis=1).astype(np.int32)
+
+
+def vlm_mrope(torch, T, fa, device):
+    """qwen2-vl-2b at full width and depth (28 layers × 1,536, random fp32
+    weights): 4 sequences of a 16 × 16 grid of patch embeddings and 768
+    text positions (embeddings drawn from the seed), through
+    ``prefill_with_cache(impl="kernel")`` (bf16 cache) and 16
+    ``decode_step``s with (3, B, 1) positions; the flash launch count set
+    to 0 just before and read just after (exactly one a layer).  The same
+    run at ``impl="dense"``: prefill and decode logits within 2e-3 of the
+    largest magnitude; both runs' greedy tokens reported."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import prefill_with_cache
+    cfg = get_arch(VLM_ARCH)
+    b, s, steps = VLM_BATCH, VLM_GRID ** 2 + VLM_TEXT, ZOO_NEW_TOKENS
+    t0 = time.monotonic()
+    params = T.init_params(cfg, device=device, dtype=torch.float32,
+                           seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    embeds = torch.randn((b, s + steps, cfg.d_model), generator=g,
+                         device=device)
+    positions = torch.from_numpy(vlm_positions(VLM_TEXT + steps, b)).to(
+        device)
+    vocab = cfg.vocab_size
+
+    def run(impl):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, cache = prefill_with_cache(
+                params, cfg, {"embeds": embeds[:, :s],
+                              "positions": positions[:, :, :s]},
+                max_len=s + steps, impl=impl)
+            tokens = [torch.argmax(logits[:, -1, :vocab], -1).cpu()]
+            prefill_s = time.perf_counter() - t0
+            rows, decode_s = [logits[:, -1].float()], []
+            for i in range(steps):
+                t = time.perf_counter()
+                out, cache = T.decode_step(params, cfg, cache, {
+                    "embeds": embeds[:, s + i:s + i + 1],
+                    "positions": positions[:, :, s + i:s + i + 1],
+                    "length": s + i})
+                tokens.append(torch.argmax(out[:, 0, :vocab], -1).cpu())
+                decode_s.append(time.perf_counter() - t)
+                rows.append(out[:, 0].float())
+        return (logits, torch.stack(rows, 1), torch.stack(tokens, 1),
+                prefill_s, decode_s)
+
+    run("kernel")                                       # warm up
+    counter = fa.LAUNCHES["flash_attention"]
+    torch.cuda.reset_peak_memory_stats(device)
+    counter.reset()
+    logits, rows, tokens, prefill_s, decode_s = run("kernel")
+    launches = {"flash_attention": counter.count}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"qwen2-vl flash launches {launches}, "
+                             f"expected {cfg.n_layers}")
+    plain_logits, plain_rows, plain_tokens, plain_prefill_s, _ = run(
+        "dense")
+    if counter.count != cfg.n_layers:
+        raise AssertionError("the dense path launched the flash kernel")
+    errs = {}
+    for key, a, want in (("prefill", logits, plain_logits),
+                         ("decode", rows, plain_rows)):
+        diff = float((a.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        errs[key] = {"max_abs": diff, "scale": scale}
+        if not np.isfinite(diff) or diff > MODEL_TOL * scale:
+            raise AssertionError(f"qwen2-vl kernel vs dense {key} logits: "
+                                 f"{diff} > {MODEL_TOL} × {scale}")
+    wall = prefill_s + sum(decode_s)
+    emit("vlm_mrope", arch=VLM_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=T.param_count(params), init_s=init_s,
+         batch=b, seq=s, image_grid=[VLM_GRID, VLM_GRID], text=VLM_TEXT,
+         decode_steps=steps, cache="bf16", launches=launches,
+         tokens_per_s=b * (steps + 1) / wall, wall_s=wall,
+         first_token_ms_mean=prefill_s * 1e3,
+         first_token_ms_p95=prefill_s * 1e3, prefill_ms=prefill_s * 1e3,
+         prefill_ms_dense=plain_prefill_s * 1e3,
+         decode_ms_per_step=float(np.mean(decode_s) * 1e3),
+         max_memory_allocated_gb=peak_gb, kernel_vs_dense=errs,
+         tol_of_scale=MODEL_TOL, greedy_tokens=tokens.tolist(),
+         greedy_tokens_dense=plain_tokens.tolist(),
+         greedy_equal=int((tokens == plain_tokens).sum()),
+         greedy_compared=tokens.numel())
+    del params, embeds, logits, plain_logits
+    torch.cuda.empty_cache()
+
+
+def moe_layer_vs_dense(torch, L, cfg, lp, device):
+    """One full-width MoE layer on 256 tokens against an independent dense
+    formulation: every token through every expert, weighted by its gates
+    and the keep mask of ``_dispatch_positions``.  Tolerance 2e-4 of the
+    largest magnitude."""
+    m, d = cfg.moe, cfg.d_model
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    x = torch.randn((1, MOE_CHECK_TOKENS, d), generator=g, device=device)
+    with torch.inference_mode():
+        y, aux = L.moe_forward(lp, x, cfg)
+        xs = x[0]
+        _, _, gate, ids = L.moe_route(lp, xs, m.top_k)
+        cap = L.moe_capacity(cfg, MOE_CHECK_TOKENS)
+        pos = L._dispatch_positions(ids.reshape(-1), m.n_experts).reshape(
+            ids.shape)
+        keep = pos < cap
+        h = torch.einsum("td,edf->etf", xs, lp["w_gate"])
+        u = torch.einsum("td,edf->etf", xs, lp["w_up"])
+        every = torch.einsum("etf,efd->etd", L.silu(h) * u, lp["w_down"])
+        rows = torch.arange(MOE_CHECK_TOKENS, device=device)
+        want = torch.zeros_like(xs)
+        for j in range(m.top_k):
+            want += (gate[:, j] * keep[:, j])[:, None] * every[ids[:, j],
+                                                               rows]
+    diff = float((y[0] - want).abs().max())
+    scale = float(want.abs().max())
+    if not np.isfinite(diff) or diff > MOE_TOL * scale:
+        raise AssertionError(f"MoE layer vs dense formulation: {diff} > "
+                             f"{MOE_TOL} × {scale}")
+    return {"tokens": MOE_CHECK_TOKENS, "capacity": cap,
+            "dropped_frac": float(aux["dropped_frac"]),
+            "kept_pairs": int(keep.sum()), "max_abs": diff, "scale": scale,
+            "tol_of_scale": MOE_TOL}
+
+
+def serve_moe(torch, serve, T, L, fa, device):
+    """qwen3-moe-235b-a22b at full width (128 experts, top-8) with 4 of
+    its 94 layers (fp32 weights: about 10 GB a layer and 5 GB of
+    embedding and head, 45 GB in all; all 94 do not fit one card) through
+    ``BatchServer(impl="kernel")``: 2 waves of 4 requests, 512- and
+    1,024-token prompts, 16 new tokens each, the flash launch count set
+    to 0 just before and read just after (one a layer a wave).  The
+    prefills' ``dropped_frac`` and per-expert token counts are recorded
+    from the router.  The same waves at ``impl="dense"``: tokens equal
+    up to the first place where the plain run's top two logits lie within
+    the logits tolerance (2e-3 of 1 + the top logit); a routing near-tie
+    can flip an expert, so prefill logits are reported, not held.  Then
+    one MoE layer against :func:`moe_layer_vs_dense`."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    max_len = max(MOE_WAVES) + ZOO_NEW_TOKENS
+    t0 = time.monotonic()
+    params = T.init_params(cfg, device=device, dtype=torch.float32,
+                           seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in MOE_WAVES for _ in range(SERVE_SLOTS)]
+    run_server(torch, serve, params, cfg, device, "kernel",
+               [prompts[0][:64]], max_len=max_len, new_tokens=2)
+    route, forward = L.moe_route, L.moe_forward
+    routes, drops = [], []
+
+    def kept_route(p, xf, top_k):
+        out = route(p, xf, top_k)
+        if xf.shape[-2] > SERVE_SLOTS:                  # a prefill
+            routes.append(out[3])
+        return out
+
+    def kept_forward(p, x, cfg, **kw):
+        y, aux = forward(p, x, cfg, **kw)
+        if x.shape[0] * x.shape[1] > SERVE_SLOTS:
+            drops.append(aux["dropped_frac"])
+        return y, aux
+
+    counter = fa.LAUNCHES["flash_attention"]
+    torch.cuda.reset_peak_memory_stats(device)
+    L.moe_route, L.moe_forward = kept_route, kept_forward
+    try:
+        counter.reset()
+        server, done, captured, wall = run_server(
+            torch, serve, params, cfg, device, "kernel", prompts,
+            max_len=max_len, new_tokens=ZOO_NEW_TOKENS)
+        launches = {"flash_attention": counter.count}
+    finally:
+        L.moe_route, L.moe_forward = route, forward
+    stats = serve_stats(torch, server, done,
+                        check_served(done, len(prompts), cfg,
+                                     ZOO_NEW_TOKENS), wall, device)
+    want = len(MOE_WAVES) * cfg.n_layers
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"MoE serve flash launches {launches}, "
+                             f"expected {want} (waves x layers)")
+    e = cfg.moe.n_experts
+    counts = [torch.bincount(ids.reshape(-1), minlength=e).tolist()
+              for ids in routes]
+    if len(counts) != want or any(sum(c) != n * SERVE_SLOTS * cfg.moe.top_k
+                                  for c, n in zip(
+                                      counts, np.repeat(MOE_WAVES,
+                                                        cfg.n_layers))):
+        raise AssertionError("the prefill routes do not cover every token")
+
+    _, done_p, captured_p, wall_p = run_server(
+        torch, serve, params, cfg, device, "dense", prompts,
+        max_len=max_len, new_tokens=ZOO_NEW_TOKENS)
+    if counter.count != want:
+        raise AssertionError("the dense path launched the flash kernel")
+    compared, near_ties = compare_tokens(
+        done, done_p, captured_p, lambda top1: MODEL_TOL * (1 + abs(top1)))
+    layer = moe_layer_vs_dense(torch, L, cfg, params["blocks"][0]["moe"],
+                               device)
+    emit("serve_moe", arch=MOE_ARCH, layers=cfg.n_layers,
+         reduced="n_layers 94 -> 4", d_model=cfg.d_model,
+         experts=e, top_k=cfg.moe.top_k, params=T.param_count(params),
+         init_s=init_s, cache="bf16", **stats, launches=launches,
+         prefill_dropped_frac=[float(d) for d in drops],
+         prefill_expert_counts=counts,
+         prefill_expert_counts_min_max=[[min(c), max(c)] for c in counts],
+         dense_wall_s=wall_p, tokens_compared=compared,
+         near_ties=near_ties, tokens_equal=sum(
+             a.result_tokens == b.result_tokens
+             for a, b in zip(done, done_p)),
+         prefill_last_logits_max_abs_vs_dense=[
+             float((a["logits"] - b["logits"]).abs().max())
+             for a, b in zip(captured, captured_p)],
+         layer_vs_dense=layer)
+    del params, captured, captured_p
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1781,6 +2199,7 @@ def main() -> int:
     from repro_torch.kernels import ref as tref
     from repro_torch.kernels import ssd
     from repro_torch.launch import train as TL
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     import repro_torch.serve as serve
     from repro_torch.train import step as TS
@@ -1850,6 +2269,13 @@ def main() -> int:
     train_vs_host(torch, TS, T, device)
     train_resume(torch, TL, TS, device)
     int8_pod(torch, TS, device)
+
+    # the rest of the zoo: MLA, M-RoPE with patch embeddings, MoE (the
+    # flash kernel serves the GQA prefills; MLA's attention is dense)
+    serve_mla(torch, serve, T, fa, device)
+    mla_vs_host(torch, T, device)
+    vlm_mrope(torch, T, fa, device)
+    serve_moe(torch, serve, T, L, fa, device)
 
     kernels = []
     for name, replaces in (

@@ -17,7 +17,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import layers as L
 from repro_torch.models.transformer import default_device
 
 
@@ -39,7 +38,6 @@ def load_reference_params(tree, cfg: ArchConfig, device=None):
     """The reference's parameter tree (numpy leaves, blocks stacked on
     axis 0) as the port's parameters (blocks a list of per-layer dicts),
     on ``cuda:0`` unless ``device`` names another."""
-    L.check_supported(cfg)
     device = default_device(device)
     params = {k: _map(v, lambda a: _tensor(a, device))
               for k, v in tree.items() if k != "blocks"}

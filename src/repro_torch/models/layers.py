@@ -1,19 +1,22 @@
 """Layer primitives of the decoder zoo, in PyTorch: the counterpart of
-``repro.models.layers`` for the families this port serves.
+``repro.models.layers``.
 
 * GQA attention (dense / chunked online softmax / the flash kernel /
   decode), with sliding windows;
+* RoPE and M-RoPE (Qwen2-VL's (t, h, w) sections);
+* MLA — multi-head latent attention (prefill expansion, absorbed decode);
 * Mamba2 SSD — chunked state-space duality scan (prefill) and stateful
   decode;
 * the Hymba hybrid block — parallel attention and SSM heads;
 * FFN: SwiGLU / squared-ReLU / GELU (tanh approximation, as
-  ``jax.nn.gelu``).
+  ``jax.nn.gelu``);
+* MoE: top-k router with scatter-based capacity dispatch (and arctic's
+  parallel dense residual).
 
-MLA, MoE and M-RoPE wait for ROADMAP A8; :func:`check_supported` names
-them.  Params are plain dicts of tensors with the reference's names and
-shapes; initializers live next to the forward functions and take an
-explicit ``torch.Generator``.  Softmax/norm math runs in float32 whatever
-the compute dtype.
+Params are plain dicts of tensors with the reference's names and shapes;
+initializers live next to the forward functions and take an explicit
+``torch.Generator``.  Softmax/norm math runs in float32 whatever the
+compute dtype.
 
 ``impl`` takes ``"dense" | "chunked" | "kernel"``.  ``"kernel"`` is the
 counterpart of the reference's ``"pallas"``: attention goes through
@@ -22,7 +25,8 @@ counterpart of the reference's ``"pallas"``: attention goes through
 kernels on a CUDA tensor and their plain versions on a CPU tensor.  Unlike
 the reference, :func:`ssm_forward` takes the same ``impl`` (the reference's
 ``hybrid_forward`` leaves its SSM on the ``"jnp"`` scan); both scans compute
-the same function.
+the same function.  MLA takes ``"chunked"`` or else dense attention, as the
+reference's ``mla_forward`` does, so its ``"kernel"`` is dense too.
 """
 from __future__ import annotations
 
@@ -37,23 +41,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ssd as kssd
 
 IMPLS = ("dense", "chunked", "kernel")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of the zoo this port does not run yet."""
-    missing = []
-    if cfg.attn_kind == "mla":
-        missing.append("MLA attention")
-    if cfg.moe is not None:
-        missing.append("MoE FFN")
-    if cfg.pos_kind == "mrope":
-        missing.append("M-RoPE")
-    if cfg.input_mode != "tokens":
-        missing.append("the embedding frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(missing)}, which the PyTorch port "
-            f"does not have yet (ROADMAP A8)")
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +86,24 @@ def rope_cos_sin(positions, head_dim: int, theta: float):
     freqs = rope_freqs(head_dim, theta, positions.device)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions, head_dim: int, theta: float, sections):
+    """M-RoPE (Qwen2-VL): positions (3,B,S) for the (t, h, w) axes ->
+    cos/sin (B,S,head_dim//2) float32.
+
+    ``sections`` gives each axis its count of rotary half-dims, in order,
+    sum(sections) == head_dim // 2."""
+    assert sum(sections) == head_dim // 2, (sections, head_dim)
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * freqs              # (3,B,S,hd/2)
+    parts_cos, parts_sin = [], []
+    off = 0
+    for i, n in enumerate(sections):
+        parts_cos.append(torch.cos(ang[i, ..., off:off + n]))
+        parts_sin.append(torch.sin(ang[i, ..., off:off + n]))
+        off += n
+    return torch.cat(parts_cos, -1), torch.cat(parts_sin, -1)
 
 
 def apply_rope(x, cos, sin):
@@ -245,6 +250,113 @@ def gqa_decode(p, x, cache_k, cache_v, write_idx: int, valid_len: int, cos,
 
 
 # ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (MiniCPM3 / DeepSeek-V2 family)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(generator, cfg: ArchConfig, dtype, device):
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    out_scale = 0.02 / math.sqrt(2.0 * cfg.n_layers)
+    return {
+        "wq_a": _init(generator, (d, m.q_lora_rank), 0.02, dtype, device),
+        "q_norm": torch.ones((m.q_lora_rank,), dtype=dtype, device=device),
+        "wq_b": _init(generator, (m.q_lora_rank, h * qk), 0.02, dtype,
+                      device),
+        "wkv_a": _init(generator, (d, m.kv_lora_rank + m.qk_rope_dim), 0.02,
+                       dtype, device),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=device),
+        "wkv_b": _init(generator, (m.kv_lora_rank,
+                                   h * (m.qk_nope_dim + m.v_head_dim)), 0.02,
+                       dtype, device),
+        "wo": _init(generator, (h * m.v_head_dim, d), out_scale, dtype,
+                    device),
+    }
+
+
+def _mla_qkv(p, x, cos, sin, cfg: ArchConfig):
+    """Shared projection path; returns q_nope, q_rope, c_kv (normed),
+    k_rope.  cos/sin span the ``qk_rope_dim`` rotated dims only."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    c_kv, k_rope = torch.split(x @ p["wkv_a"],
+                               [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
+                chunk=1024):
+    """Prefill/train path: expand the latent back to per-head k/v (q/k
+    ``qk_nope + qk_rope`` wide, v ``v_head_dim``).  Returns (out, (c_kv,
+    k_rope)), the two latents the decode cache keeps.
+
+    ``impl="chunked"`` takes the chunked online softmax; any other impl,
+    ``"kernel"`` included, takes dense attention, as the reference's
+    ``mla_forward`` does for its ``"pallas"``: the flash kernel never
+    sees MLA's unequal q/k and v widths."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    if impl not in IMPLS:
+        raise ValueError(impl)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cos, sin, cfg)
+    kvx = (c_kv @ p["wkv_b"]).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = torch.split(kvx, [m.qk_nope_dim, m.v_head_dim], dim=-1)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_dim)], -1)
+    if impl == "chunked":
+        o = attention_chunked(q, k, v, causal=True, chunk_q=min(chunk, s),
+                              chunk_k=min(chunk, s))
+    else:
+        o = attention_dense(q, k, v, causal=True)
+    return o.reshape(b, s, h * m.v_head_dim) @ p["wo"], (c_kv, k_rope)
+
+
+def mla_decode(p, x, cache_ckv, cache_krope, length: int, cos, sin,
+               cfg: ArchConfig):
+    """Absorbed-matmul MLA decode: attention runs in the latent space, so
+    the cache stays compressed, (B,Smax,kv_lora) + (B,Smax,rope) only.
+
+    x (B,1,D).  Writes the new latents at ``length`` into the caches **in
+    place** (no ring; ``length < Smax``: torch indexing raises where the
+    reference's ``dynamic_update_slice`` clamps) and attends over
+    ``length + 1`` entries.  As in the reference, the scores are fp32, the
+    softmax is cast to the cache's type before its product with ``c_kv``
+    (a bf16 cache gives a bf16 ``o_lat``), and ``o_lat`` is then widened
+    to ``w_uv``'s type.  Returns (out, cache_ckv, cache_krope)."""
+    m, h = cfg.mla, cfg.n_heads
+    b = x.shape[0]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cos, sin, cfg)
+    cache_ckv[:, length] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_krope[:, length] = k_rope[:, 0].to(cache_krope.dtype)
+    w_kv = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
+    w_uk, w_uv = w_kv[..., :m.qk_nope_dim], w_kv[..., m.qk_nope_dim:]
+    # absorb: q_lat[b,h,r] = sum_n q_nope[b,h,n] w_uk[r,h,n]
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    sc = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), cache_ckv.float())
+          + torch.einsum("bqhn,bsn->bhqs", q_rope.float(),
+                         cache_krope.float())) * scale
+    smax = cache_ckv.shape[1]
+    keep = torch.arange(smax, device=x.device) < length + 1
+    sc = sc.masked_fill(~keep, float("-inf"))
+    pattn = torch.softmax(sc, dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", pattn.to(cache_ckv.dtype),
+                         cache_ckv)
+    dt = torch.promote_types(o_lat.dtype, w_uv.dtype)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(dt), w_uv.to(dt))
+    o = o.reshape(b, 1, h * m.v_head_dim)
+    dt = torch.promote_types(o.dtype, p["wo"].dtype)
+    return o.to(dt) @ p["wo"].to(dt), cache_ckv, cache_krope
+
+
+# ---------------------------------------------------------------------------
 # FFN variants
 # ---------------------------------------------------------------------------
 
@@ -269,6 +381,143 @@ def ffn_forward(p, x, kind: str):
     if kind == "gelu":
         return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# MoE — top-k router + scatter-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+
+def moe_init(generator, cfg: ArchConfig, dtype, device):
+    """The router is fp32 whatever ``dtype``, as in the reference."""
+    m, d = cfg.moe, cfg.d_model
+    out_scale = 0.02 / math.sqrt(2.0 * cfg.n_layers)
+    p = {
+        "router": _init(generator, (d, m.n_experts), 0.02, torch.float32,
+                        device),
+        "w_gate": _init(generator, (m.n_experts, d, m.d_expert), 0.02, dtype,
+                        device),
+        "w_up": _init(generator, (m.n_experts, d, m.d_expert), 0.02, dtype,
+                      device),
+        "w_down": _init(generator, (m.n_experts, m.d_expert, d), out_scale,
+                        dtype, device),
+    }
+    if m.dense_residual:
+        p["dense"] = ffn_init(generator, cfg, dtype, device)
+    return p
+
+
+def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    m = cfg.moe
+    c = int(m.capacity_factor * n_tokens * m.top_k / m.n_experts)
+    return max(8, -(-c // 8) * 8)          # round up to multiple of 8
+
+
+def _dispatch_positions(flat_ids, n_experts: int):
+    """Position of each (token, slot) within its expert's arrival order:
+    the reference's cumsum over a one-hot, in integers (its fp32 cumsum is
+    exact at these counts, so the positions are the same).
+
+    flat_ids (..., N) int -> pos (..., N) int32."""
+    oh = F.one_hot(flat_ids.long(), n_experts).to(torch.int32)
+    csum = torch.cumsum(oh, dim=-2, dtype=torch.int32)        # inclusive
+    pos = torch.gather(csum, -1, flat_ids.long()[..., None])[..., 0] - 1
+    return pos.to(torch.int32)
+
+
+def moe_route(p, xf, top_k: int):
+    """Router of (..., T, D) tokens: (logits, probs, gate, ids).
+
+    ``lax.top_k`` puts the lower expert index first on ties, which
+    ``torch.topk`` does not promise; a stable descending sort taken to
+    ``top_k`` does.  The gates are renormalised over the chosen k."""
+    logits = xf.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, ids = vals[..., :top_k], idx[..., :top_k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    return logits, probs, gate, ids
+
+
+def moe_forward(p, x, cfg: ArchConfig, *, shard_experts=None,
+                groups: int = 1):
+    """x (B,S,D) -> (y (B,S,D), aux_losses dict).
+
+    Scatter/gather capacity dispatch: tokens are routed to a fixed-capacity
+    (E, C, D) buffer with plain scatters (no one-hot dispatch einsum), so
+    the expert products stay proportional to the useful work.  Overflowing
+    tokens are dropped (their combine weight contribution is zero),
+    matching GShard/Switch semantics.
+
+    ``groups > 1`` takes GShard-style local dispatch groups
+    (:func:`_moe_forward_grouped`), only when each group fills its
+    capacity floor (the reference's gate); otherwise, as with
+    ``groups=1``, all tokens form one group.  ``shard_experts`` waits for
+    the sharding rules (ROADMAP A9.3): only ``None`` is accepted."""
+    if shard_experts is not None:
+        raise NotImplementedError("shard_experts needs the sharding rules "
+                                  "(ROADMAP A9.3); pass None")
+    m = cfg.moe
+    t = x.shape[0] * x.shape[1]
+    if (groups > 1 and t % groups == 0
+            and m.capacity_factor * (t // groups) * m.top_k
+            / m.n_experts >= 8):
+        return _moe_forward_grouped(p, x, cfg, shard_experts, groups)
+    return _moe_forward_grouped(p, x, cfg, shard_experts, 1)
+
+
+def _moe_forward_grouped(p, x, cfg: ArchConfig, shard_experts, groups: int):
+    """Group-local capacity dispatch (see :func:`moe_forward`); one group
+    is the reference's ungrouped path.
+
+    Every (token, slot) past its expert's capacity is written to the one
+    spare row ``n_experts · cap`` of its group's buffer, which is thrown
+    away (``index_copy_`` with that duplicate index is nondeterministic in
+    that row only), and gathers the zero row there.  The combine sums
+    ``gate_j · out[slot_j]`` in fp32 in j order and casts once."""
+    m = cfg.moe
+    b, s, d = x.shape
+    g, e, k = groups, m.n_experts, m.top_k
+    tg = b * s // g
+    xf = x.reshape(g, tg, d)
+    logits, probs, gate, ids = moe_route(p, xf, k)           # (g,tg,k)
+
+    cap = moe_capacity(cfg, tg)
+    pos = _dispatch_positions(ids.reshape(g, tg * k), e).reshape(g, tg, k)
+    keep = pos < cap
+    slot = torch.where(keep, ids * cap + pos, e * cap)
+    rows = e * cap + 1
+    # one flat buffer; group i's rows start at i · rows
+    flat = slot + (torch.arange(g, device=x.device) * rows)[:, None, None]
+    buf = torch.zeros((g * rows, d), dtype=x.dtype, device=x.device)
+    src = xf.reshape(g * tg, d)
+    for j in range(k):                                       # k small
+        buf.index_copy_(0, flat[:, :, j].reshape(-1), src)
+    eb = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d)
+    hg = torch.einsum("gecd,edf->gecf", eb, p["w_gate"])
+    hu = torch.einsum("gecd,edf->gecf", eb, p["w_up"])
+    out = torch.einsum("gecf,efd->gecd", silu(hg) * hu, p["w_down"])
+    out_flat = torch.cat([out.reshape(g, e * cap, d),
+                          torch.zeros((g, 1, d), dtype=out.dtype,
+                                      device=out.device)], 1).reshape(-1, d)
+
+    y = torch.zeros((g, tg, d), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        y = y + gate[:, :, j:j + 1] * out_flat[flat[:, :, j]].float()
+    y = y.to(x.dtype).reshape(b, s, d)
+
+    # aux losses: switch load-balance + router z-loss
+    me = probs.mean((0, 1))                                   # (E,)
+    ce = F.one_hot(ids[..., 0], e).float().mean((0, 1))
+    aux = {
+        "lb_loss": m.router_aux_coef * m.n_experts * torch.sum(me * ce),
+        "z_loss": m.router_z_coef * torch.mean(
+            torch.logsumexp(logits, dim=-1) ** 2),
+        "dropped_frac": 1.0 - keep.float().mean(),
+    }
+    if m.dense_residual:
+        y = y + ffn_forward(p["dense"], x, cfg.ffn_kind)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The decoder of the zoo, in PyTorch: the counterpart of
-``repro.models.transformer`` for the families this port serves (attention
-kinds ``gqa``, ``hybrid`` and ``none``, token inputs, RoPE or none).
+``repro.models.transformer`` for all ten architectures (attention kinds
+``gqa``, ``mla``, ``hybrid`` and ``none``; a dense FFN or MoE; token,
+codebook or embedding inputs; RoPE, M-RoPE or none).
 
 * The reference's ``lax.scan`` over stacked layer params becomes a Python
   loop over ``params["blocks"]``, a list of one dict a layer.
@@ -12,8 +13,11 @@ kinds ``gqa``, ``hybrid`` and ``none``, token inputs, RoPE or none).
 * :func:`forward` recomputes each block in the backward pass when
   ``remat`` is on (``cfg.remat`` by default), the counterpart of the
   reference's ``jax.checkpoint(body, policy=nothing_saveable)``;
-  :func:`loss_fn` is the next-token cross entropy the train step
-  differentiates.
+  :func:`loss_fn` is the next-token cross entropy (plus the MoE router's
+  auxiliary losses) the train step differentiates.
+* The embedding frontend (qwen2-vl-2b) takes ``inputs["embeds"]``
+  (B,S,D) and M-RoPE ``inputs["positions"]`` (3,B,S); such a model has no
+  ``embed`` table.
 
 ``ShardRules``/``param_pspecs`` wait for the launch stack (ROADMAP A9).
 """
@@ -49,13 +53,18 @@ def _block_init(generator, cfg: ArchConfig, dtype, device):
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
     if cfg.attn_kind == "gqa":
         p["attn"] = L.gqa_init(generator, cfg, dtype, device)
+    elif cfg.attn_kind == "mla":
+        p["attn"] = L.mla_init(generator, cfg, dtype, device)
     elif cfg.attn_kind == "hybrid":
         p["mixer"] = L.hybrid_init(generator, cfg, dtype, device)
     elif cfg.attn_kind == "none":
         p["ssm"] = L.ssm_init(generator, cfg, dtype, device)
     else:
         raise ValueError(cfg.attn_kind)
-    if cfg.d_ff:
+    if cfg.moe is not None:
+        p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+        p["moe"] = L.moe_init(generator, cfg, dtype, device)
+    elif cfg.d_ff:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
         p["ffn"] = L.ffn_init(generator, cfg, dtype, device)
     return p
@@ -66,22 +75,23 @@ def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator]
     """Random parameters with the reference's shapes and scales
     (``transformer.py:78-120``, ``layers.py``): normal draws × 0.02 (output
     projections × 0.02/√(2L)), norms at 1, the pad rows of ``embed`` and
-    pad columns of ``head`` zeroed, ``A_log = log(1..nh)``, ``D = 1`` and
+    pad columns of ``head`` zeroed, ``A_log = log(1..nh)``, ``D = 1``,
     ``dt_bias`` the inverse softplus of a log-uniform draw in
-    [dt_min, dt_max].  The draws come from ``generator`` (made from
-    ``seed`` on ``device`` when not given), so they are not the
-    reference's: tests carry the reference's weights across with
+    [dt_min, dt_max] and an fp32 MoE router whatever ``dtype``; no
+    ``embed`` in embeddings mode.  The draws come from ``generator``
+    (made from ``seed`` on ``device`` when not given), so they are not
+    the reference's: tests carry the reference's weights across with
     :mod:`repro_torch.models.convert`."""
-    L.check_supported(cfg)
     device = default_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     params = {}
     v, d, kb = cfg.padded_vocab_size, cfg.d_model, cfg.n_codebooks
-    shape = (v, d) if kb == 1 else (kb, v, d)
-    emb = L._init(generator, shape, 0.02, dtype, device)
-    emb[..., cfg.vocab_size:, :] = 0.0          # pad rows (never indexed)
-    params["embed"] = emb
+    if cfg.input_mode == "tokens":
+        shape = (v, d) if kb == 1 else (kb, v, d)
+        emb = L._init(generator, shape, 0.02, dtype, device)
+        emb[..., cfg.vocab_size:, :] = 0.0      # pad rows (never indexed)
+        params["embed"] = emb
     params["ln_f"] = torch.ones((d,), dtype=dtype, device=device)
     if not cfg.tie_embeddings:
         shape = (d, v) if kb == 1 else (kb, d, v)
@@ -108,6 +118,8 @@ def param_count(params) -> int:
 
 
 def _embed_inputs(params, cfg: ArchConfig, inputs):
+    if cfg.input_mode == "embeddings":
+        return inputs["embeds"]
     # F.embedding, not indexing: its backward sums each row's gradient in a
     # fixed order, where indexing's (index_put_ with accumulate) does not
     tok = inputs["tokens"]
@@ -128,44 +140,63 @@ def _logits(params, cfg: ArchConfig, x):
     return torch.einsum("bsd,kdv->bskv", x, params["head"])
 
 
-def _positions_cos_sin(cfg: ArchConfig, seq_len: int, head_dim: int,
-                       device):
+def _positions_cos_sin(cfg: ArchConfig, inputs, seq_len: int,
+                       head_dim: int, device):
     if cfg.pos_kind == "none":
         return None, None
+    if cfg.pos_kind == "mrope":
+        return L.mrope_cos_sin(inputs["positions"], head_dim,
+                               cfg.rope_theta, cfg.mrope_sections)
     pos = torch.arange(seq_len, device=device)
     return L.rope_cos_sin(pos, head_dim, cfg.rope_theta)
 
 
+def _rope_dim(cfg: ArchConfig) -> int:
+    """The rotated width: MLA rotates its ``qk_rope_dim`` dims only."""
+    return (cfg.mla.qk_rope_dim if cfg.attn_kind == "mla"
+            else cfg.head_dim)
+
+
+def _ffn(lp, x, cfg: ArchConfig):
+    """The block's second half: (x, aux) with MoE's aux losses, else {}."""
+    if cfg.moe is not None:
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        y, aux = L.moe_forward(lp["moe"], h2, cfg)
+        return x + y, aux
+    if cfg.d_ff:
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind)
+    return x, {}
+
+
 def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, impl, chunk):
-    """One decoder block. Returns x."""
+    """One decoder block. Returns (x, aux_dict)."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "gqa":
         a, _ = L.gqa_forward(lp["attn"], h, cos, sin, cfg, impl=impl,
                              window=cfg.sliding_window, chunk=chunk)
-        x = x + a
+    elif cfg.attn_kind == "mla":
+        a, _ = L.mla_forward(lp["attn"], h, cos, sin, cfg, impl=impl,
+                             chunk=chunk)
     elif cfg.attn_kind == "hybrid":
         a, _ = L.hybrid_forward(lp["mixer"], h, cos, sin, cfg, impl=impl,
                                 chunk=chunk)
-        x = x + a
     else:                                           # pure SSM (mamba2)
-        return x + L.ssm_forward(lp["ssm"], h, cfg, impl=impl)
-    if cfg.d_ff:
-        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind)
-    return x
+        return x + L.ssm_forward(lp["ssm"], h, cfg, impl=impl), {}
+    return _ffn(lp, x + a, cfg)
 
 
 def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
             remat: Optional[bool] = None):
-    """Full-sequence forward. Returns (logits, aux) with aux empty (no MoE
-    in this port yet).
+    """Full-sequence forward. Returns (logits, aux): for MoE archs the
+    router's ``lb_loss`` and ``z_loss`` summed over the layers and
+    ``dropped_frac`` their mean, else {}.
 
     With ``remat`` (``cfg.remat`` when None) and gradients enabled, each
     block keeps only its input for the backward pass and runs again
     there.  ``impl="kernel"`` raises under autograd: the kernels are
     forward-only, as the reference's Pallas kernels are (its ``jax.grad``
     fails inside ``pallas_call``)."""
-    L.check_supported(cfg)
     remat = cfg.remat if remat is None else remat
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in pytree.tree_leaves(params))
@@ -175,22 +206,32 @@ def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
             "reference's Pallas kernels, are forward-only; differentiate "
             "impl='dense' or 'chunked'")
     x = _embed_inputs(params, cfg, inputs)
-    cos, sin = _positions_cos_sin(cfg, x.shape[1], cfg.head_dim, x.device)
+    cos, sin = _positions_cos_sin(cfg, inputs, x.shape[1], _rope_dim(cfg),
+                                  x.device)
+    aux = ({"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
+           if cfg.moe is not None else {})
     for lp in params["blocks"]:
         if remat and grad:
             # the blocks draw no random numbers: no RNG state to replay
-            x = checkpoint(block_forward, lp, x, cos, sin, cfg, impl=impl,
-                           chunk=chunk, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(block_forward, lp, x, cos, sin, cfg, impl=impl,
+                              chunk=chunk, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = block_forward(lp, x, cos, sin, cfg, impl=impl, chunk=chunk)
+            x, a = block_forward(lp, x, cos, sin, cfg, impl=impl,
+                                 chunk=chunk)
+        for k, v in a.items():
+            aux[k] = aux[k] + v
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return _logits(params, cfg, x), {}
+    if cfg.moe is not None:
+        aux["dropped_frac"] = aux["dropped_frac"] / cfg.n_layers
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
             remat: Optional[bool] = None):
-    """Next-token cross entropy. Returns (loss, {"ce", "loss"}).
+    """Next-token cross entropy, plus ``lb_loss + z_loss`` for MoE archs.
+    Returns (loss, metrics): ``ce`` and ``loss``, and for MoE archs the
+    three aux values of :func:`forward`.
 
     The vocab-pad columns are masked to −1e30 before an fp32
     log-sum-exp, so no gradient reaches the zero pad columns of the head.
@@ -198,8 +239,8 @@ def loss_fn(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
     sums logits × one-hot, a single nonzero product, so the values are
     the same without a (B, S, V) one-hot.  Labels are (B, S), or
     (B, S, K) against (B, S, K, V) logits for codebook archs."""
-    logits, _ = forward(params, cfg, inputs, impl=impl, chunk=chunk,
-                        remat=remat)
+    logits, aux = forward(params, cfg, inputs, impl=impl, chunk=chunk,
+                          remat=remat)
     vp = cfg.padded_vocab_size
     if vp != cfg.vocab_size:
         pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
@@ -208,7 +249,13 @@ def loss_fn(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
     labels = inputs["labels"].long()
     gold = torch.gather(logits, -1, labels[..., None])[..., 0].float()
     ce = (lse - gold).mean()
-    return ce, {"ce": ce, "loss": ce}
+    loss = ce
+    metrics = {"ce": ce}
+    if cfg.moe is not None:
+        loss = loss + aux["lb_loss"] + aux["z_loss"]
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +267,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """Per-layer cache, stacked on a leading layer axis.
 
-    Sliding-window archs get a ring buffer of ``window`` entries; SSM archs
-    carry O(1) state (fp32 whatever ``dtype``)."""
-    L.check_supported(cfg)
+    Sliding-window archs get a ring buffer of ``window`` entries; MLA
+    caches the compressed latent (``ckv``, ``krope``); SSM archs carry O(1)
+    state (fp32 whatever ``dtype``)."""
     device = default_device(device)
     n = cfg.n_layers
     c = {}
@@ -235,6 +282,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                              device=device)
         c["v"] = torch.zeros((n, batch, size, hkv, hd), dtype=dtype,
                              device=device)
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        c["ckv"] = torch.zeros((n, batch, max_len, m.kv_lora_rank),
+                               dtype=dtype, device=device)
+        c["krope"] = torch.zeros((n, batch, max_len, m.qk_rope_dim),
+                                 dtype=dtype, device=device)
     if cfg.attn_kind in ("none", "hybrid"):
         s = cfg.ssm
         _, nh, conv_dim = L.ssm_dims(cfg)
@@ -273,6 +326,10 @@ def block_decode(lp, x, cache, layer: int, length: int, cos, sin,
         a, _, _ = L.gqa_decode(lp["attn"], h, cache["k"][layer],
                                cache["v"][layer], widx, valid, cos, sin, cfg)
         x = x + a
+    elif cfg.attn_kind == "mla":
+        a, _, _ = L.mla_decode(lp["attn"], h, cache["ckv"][layer],
+                               cache["krope"][layer], length, cos, sin, cfg)
+        x = x + a
     elif cfg.attn_kind == "hybrid":
         widx, valid = _ring(cfg, cache["k"].shape[2], length)
         sub = {name: cache[name][layer] for name in ("k", "v", "ssm", "conv")}
@@ -287,22 +344,23 @@ def block_decode(lp, x, cache, layer: int, length: int, cos, sin,
         _store(cache, "ssm", layer, st)
         _store(cache, "conv", layer, conv)
         return x + y
-    if cfg.d_ff:
-        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind)
-    return x
+    return _ffn(lp, x, cfg)[0]
 
 
 def decode_step(params, cfg: ArchConfig, cache, inputs):
     """One serve step: new token at position ``inputs['length']`` (an int).
 
-    inputs: tokens (B,1) or (B,1,K); length.  Returns (logits, cache) —
-    the same cache dict, updated in place."""
+    inputs: tokens (B,1) or (B,1,K) / embeds (B,1,D); positions (3,B,1)
+    for M-RoPE; length.  Returns (logits, cache) — the same cache dict,
+    updated in place."""
     x = _embed_inputs(params, cfg, inputs)
     length = int(inputs["length"])
-    if cfg.pos_kind == "rope":
+    if cfg.pos_kind == "mrope":
+        cos, sin = L.mrope_cos_sin(inputs["positions"], _rope_dim(cfg),
+                                   cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.pos_kind == "rope":
         pos = torch.tensor([length], device=x.device)
-        cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+        cos, sin = L.rope_cos_sin(pos, _rope_dim(cfg), cfg.rope_theta)
         cos, sin = cos[None], sin[None]             # (1,1,hd/2)
     else:
         cos = sin = None

@@ -3,8 +3,9 @@ batched server — the counterpart of ``repro.serve.engine``.
 
 ``prefill_with_cache`` runs the full-sequence forward while capturing the
 per-layer caches in exactly the layout ``transformer.init_cache``
-allocates (KV heaps, SSM states, sliding-window ring buffers), so the
-prefill→decode handoff is consistent with incremental decoding.
+allocates (KV heaps, MLA latents, SSM states, sliding-window ring
+buffers), so the prefill→decode handoff is consistent with incremental
+decoding.
 
 :class:`BatchServer` is the paper's "serve a small model with batched
 requests" driver: requests queue up, are bucketed into waves of equal
@@ -86,6 +87,12 @@ def _block_prefill(lp, x, cos, sin, cfg: ArchConfig, max_len: int,
         x = x + a
         entry["k"] = _pad_cache(k.to(cache_dtype), size, cfg.sliding_window)
         entry["v"] = _pad_cache(v.to(cache_dtype), size, cfg.sliding_window)
+    elif cfg.attn_kind == "mla":
+        a, (ckv, krope) = L.mla_forward(lp["attn"], h, cos, sin, cfg,
+                                        impl=impl, chunk=chunk)
+        x = x + a
+        entry["ckv"] = _pad_seq(ckv.to(cache_dtype), max_len)
+        entry["krope"] = _pad_seq(krope.to(cache_dtype), max_len)
     elif cfg.attn_kind == "hybrid":
         a, (k, v) = L.gqa_forward(lp["mixer"]["attn"], h, cos, sin, cfg,
                                   impl=impl, window=cfg.sliding_window,
@@ -106,20 +113,18 @@ def _block_prefill(lp, x, cos, sin, cfg: ArchConfig, max_len: int,
         x = x + y
         entry["ssm"] = ssm_state
         entry["conv"] = conv_state
-    if cfg.d_ff:
-        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind)
-    return x, entry
+    return T._ffn(lp, x, cfg)[0], entry
 
 
 def prefill_with_cache(params, cfg: ArchConfig, inputs, max_len: int, *,
                        impl="dense", chunk=1024, cache_dtype=torch.bfloat16):
     """Returns (logits (B,S,V...), cache) — cache layout == init_cache,
     with the SSM and conv states in the activations' type (fp32), as in the
-    reference."""
-    L.check_supported(cfg)
+    reference.  ``inputs`` as :func:`transformer.forward` takes them
+    (embeds and M-RoPE positions for qwen2-vl)."""
     x = T._embed_inputs(params, cfg, inputs)
-    cos, sin = T._positions_cos_sin(cfg, x.shape[1], cfg.head_dim, x.device)
+    cos, sin = T._positions_cos_sin(cfg, inputs, x.shape[1],
+                                    T._rope_dim(cfg), x.device)
     entries = []
     for lp in params["blocks"]:
         x, entry = _block_prefill(lp, x, cos, sin, cfg, max_len, cache_dtype,
@@ -180,12 +185,11 @@ class BatchServer:
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots: int = 4,
                  max_len: int = 512, impl: str = "kernel", device=None):
-        L.check_supported(cfg)
         if impl not in L.IMPLS:
             raise ValueError(f"impl must be one of {L.IMPLS}, got {impl!r}")
         self.device = T.default_device(device)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params lie on {params['embed'].device}, the "
+        if params["ln_f"].device != self.device:
+            raise ValueError(f"params lie on {params['ln_f'].device}, the "
                              f"server runs on {self.device}")
         self.params = params
         self.cfg = cfg
@@ -239,6 +243,9 @@ class BatchServer:
 
     def _serve_wave(self, wave: List[Request]) -> None:
         cfg = self.cfg
+        if cfg.input_mode == "embeddings":
+            # as the reference's server: requests carry token prompts
+            raise NotImplementedError("vlm serving uses embedding frontend")
         s_max = len(wave[0].prompt)                   # bucketed: equal lens
         b = len(wave)
         toks = np.zeros((b, s_max), np.int64)

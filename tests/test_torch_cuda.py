@@ -320,7 +320,8 @@ def test_cuda_autotune_returns_a_candidate_and_caches(sm90_device):
 # ragged tile with a window, the widest head_dim, hymba's heads; then the
 # edges of the two designs' tiles: Sq != Sk without the causal mask (k
 # padding), a sequence that no tile size (64, 96, 128) divides, every head
-# width from 16 to 256, and hymba's GQA ratio 25/5
+# width from 16 to 256, and hymba's GQA ratio 25/5; last, the zoo's GQA
+# ratios at D = 128: qwen2-vl-2b's 12/2 and qwen3-moe's 64/4
 FLASH_CASES = [(1, 128, 128, 2, 2, 64, True, None),
                (2, 200, 200, 2, 2, 64, True, 64),
                (1, 384, 384, 8, 1, 32, True, None),
@@ -335,7 +336,9 @@ FLASH_CASES = [(1, 128, 128, 2, 2, 64, True, None),
                (1, 200, 200, 2, 2, 32, False, 50),
                (1, 200, 200, 2, 2, 256, False, None),
                (1, 333, 333, 25, 5, 256, True, 128),
-               (2, 257, 257, 25, 5, 128, True, None)]
+               (2, 257, 257, 25, 5, 128, True, None),
+               (2, 257, 257, 12, 2, 128, True, None),
+               (2, 257, 257, 64, 4, 128, True, None)]
 # the kernel's online softmax against the plain version's, both fp32 from
 # the same inputs, rounded once to the output type: fp32 within
 # tests/test_kernels.py's 2e-5; bf16 within one rounding (2^-7 of the
@@ -673,3 +676,92 @@ def test_cuda_compressed_psum_on_one_rank_nccl(sm90_device):
     half = float(target.abs().max()) / 127 / 2
     assert float((avg - target).abs().max()) <= half + 1e-6
     torch.testing.assert_close(avg + new_err, target, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo: MLA, M-RoPE with embeddings, MoE; the card against
+# the host on the same weights
+# ---------------------------------------------------------------------------
+
+
+def _to(tree, device):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda t: t.to(device), tree)
+
+
+def _zoo_inputs(cfg, lo, hi, seed=0):
+    """Positions lo..hi-1 of a seeded sequence (2 rows): token ids, or
+    embeddings with distinct (t, h, w) M-RoPE positions."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeddings":
+        emb = rng.standard_normal((2, hi, cfg.d_model)).astype(np.float32)
+        n = np.arange(hi)
+        pos = np.stack([n, n // 4 + 1, n % 4 + 2])[:, None].repeat(2, 1)
+        return {"embeds": torch.from_numpy(emb[:, lo:hi]),
+                "positions": torch.from_numpy(
+                    np.ascontiguousarray(pos[:, :, lo:hi]).astype(np.int32))}
+    toks = rng.integers(0, cfg.vocab_size, (2, hi))
+    return {"tokens": torch.from_numpy(toks[:, lo:hi])}
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen2-vl-2b",
+                                  "qwen3-moe-235b-a22b", "arctic-480b"])
+def test_cuda_zoo_prefill_and_decode_match_host(sm90_device, arch):
+    """Reduced MLA, M-RoPE and MoE archs: a 40-token prefill through
+    ``impl="kernel"`` (fp32 cache) and 4 decode steps on the card and on
+    the host from the same host-made weights; logits and every cache
+    entry within 2e-3 (tests/test_serve.py's tolerance).  The prefill
+    launches the flash kernel once a layer, MLA never (its attention is
+    dense, as in the reference)."""
+    from repro_torch.serve.engine import prefill_with_cache
+    cfg = get_arch(arch).reduced()
+    host = TT.init_params(cfg, device="cpu", seed=4)
+    S, N = 40, 4
+    out = {}
+    for name, params, dev in (("card", _to(host, sm90_device), sm90_device),
+                              ("host", host, "cpu")):
+        before = tfa.LAUNCHES["flash_attention"].count
+        with torch.inference_mode():
+            inp = {k: v.to(dev) for k, v in _zoo_inputs(cfg, 0, S).items()}
+            logits, cache = prefill_with_cache(
+                params, cfg, inp, max_len=S + N, impl="kernel",
+                cache_dtype=torch.float32)
+            rows = [logits]
+            for i in range(N):
+                inp = {k: v.to(dev) for k, v in
+                       _zoo_inputs(cfg, S + i, S + i + 1).items()}
+                step, cache = TT.decode_step(params, cfg, cache,
+                                             {**inp, "length": S + i})
+                rows.append(step)
+        launches = tfa.LAUNCHES["flash_attention"].count - before
+        out[name] = ([r.cpu() for r in rows],
+                     {k: v.cpu() for k, v in cache.items()}, launches)
+    assert out["card"][2] == (0 if cfg.attn_kind == "mla" else cfg.n_layers)
+    assert out["host"][2] == 0
+    for a, b in zip(out["card"][0], out["host"][0]):
+        torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-3)
+    for key, b in out["host"][1].items():
+        torch.testing.assert_close(out["card"][1][key], b, atol=2e-3,
+                                   rtol=2e-3)
+
+
+def test_cuda_moe_train_step_matches_host(sm90_device):
+    """Reduced qwen3-moe (Adafactor): three steps of make_train_step from
+    the same host-made weights, loss, grad norm and the router's aux
+    values 1e-4 relative, params within 5e-5."""
+    from torch.utils import _pytree as pytree
+    cfg, tc, TS, batches = _train_setup("qwen3-moe-235b-a22b")
+    ph, sh = TS.init_train_state(cfg, tc, seed=1, device="cpu")
+    pc, sc = _to(ph, sm90_device), _to(sh, sm90_device)
+    step = TS.make_train_step(cfg, tc)
+    for b in batches:
+        pc, sc, mc = step(pc, sc, {k: v.to(sm90_device) for k, v in b.items()})
+        ph, sh, mh = step(ph, sh, b)
+        assert {"lb_loss", "z_loss", "dropped_frac"} <= set(mh)
+        for k in ("loss", "grad_norm", "lb_loss", "z_loss"):
+            np.testing.assert_allclose(float(mc[k]), float(mh[k]), rtol=1e-4)
+        assert float(mc["dropped_frac"]) == float(mh["dropped_frac"])
+    for a, b in zip(pytree.tree_leaves(pc), pytree.tree_leaves(ph)):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=5e-5,
+                                   rtol=0)

@@ -1,6 +1,7 @@
 """The port's configs and decoder against the reference on the CPU: every
 config field equal for all ten archs, parameter shapes equal, and
-``forward`` logits on weights carried across from the reference.
+``forward`` logits (and the MoE aux losses) on weights carried across
+from the reference.
 
 Tolerance 2e-3 for logits, that of ``tests/test_serve.py`` for model-level
 comparisons (a few layers of fp32 sums taken in another order; softplus in
@@ -20,10 +21,7 @@ from repro_torch.models import convert, layers as TL
 from repro_torch.models import transformer as TT
 
 ALL = list_archs()
-SUPPORTED = [a for a in ALL if get_arch(a).attn_kind in ("gqa", "hybrid",
-                                                         "none")
-             and get_arch(a).moe is None and get_arch(a).pos_kind != "mrope"]
-PARITY_ARCHS = ["internlm2-1.8b", "mamba2-130m", "hymba-1.5b"]
+PARITY_ARCHS = ALL
 
 
 @pytest.mark.parametrize("arch", ALL)
@@ -43,10 +41,6 @@ def test_configs_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", ALL)
 def test_init_shapes_match_the_reference(arch):
     cfg = tconfigs.get_arch(arch).reduced()
-    if arch not in SUPPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            TT.init_params(cfg, device="cpu")
-        return
     ref = JT.param_shapes(get_arch(arch).reduced(), jnp.float32)
     port = TT.init_params(cfg, device="cpu")
     assert set(port) == set(ref)
@@ -62,7 +56,7 @@ def test_init_shapes_match_the_reference(arch):
             for k in keys:
                 t = t[k]
             assert tuple(t.shape) == leaf.shape[1:], keys
-            assert t.dtype == torch.float32
+            assert str(t.dtype) == f"torch.{leaf.dtype}", keys
     n_ref = sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(ref))
     assert TT.param_count(port) == n_ref
 
@@ -113,17 +107,36 @@ def _carried(arch):
     return cfg, jp, tp
 
 
+def _inputs(cfg, rng, b=2, s=64):
+    """The same numpy inputs for both packages: token ids (codebook ids
+    for musicgen), or qwen2-vl's embeddings with distinct (t, h, w)
+    M-RoPE positions."""
+    if cfg.input_mode == "embeddings":
+        arr = {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(
+                   np.float32),
+               "positions": np.stack([np.arange(s), np.arange(s) // 8,
+                                      np.arange(s) % 8])[:, None].repeat(
+                   b, 1).astype(np.int32)}
+    else:
+        shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks > 1 else (b, s)
+        arr = {"tokens": rng.integers(0, cfg.vocab_size, shape)}
+    return ({k: jnp.asarray(v) for k, v in arr.items()},
+            {k: torch.from_numpy(v) for k, v in arr.items()})
+
+
 @pytest.mark.parametrize("arch", PARITY_ARCHS)
 @pytest.mark.parametrize("impl", [("dense", "dense"), ("kernel", "pallas")])
 def test_forward_matches_the_reference(arch, impl):
     port_impl, ref_impl = impl
     cfg, jp, tp = _carried(arch)
-    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64))
-    want, _ = JT.forward(jp, cfg, {"tokens": jnp.asarray(toks)},
-                         impl=ref_impl, remat=False)
-    got, aux = TT.forward(tp, tconfigs.get_arch(arch).reduced(),
-                          {"tokens": torch.from_numpy(toks)}, impl=port_impl)
-    assert aux == {}
+    jin, tin = _inputs(cfg, np.random.default_rng(1))
+    want, want_aux = JT.forward(jp, cfg, jin, impl=ref_impl, remat=False)
+    got, aux = TT.forward(tp, tconfigs.get_arch(arch).reduced(), tin,
+                          impl=port_impl)
+    assert set(aux) == set(want_aux)
+    for name, value in want_aux.items():
+        np.testing.assert_allclose(float(aux[name]), float(value),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3,
                                rtol=2e-3)

@@ -1,7 +1,9 @@
-"""The port's serving path against the reference on the CPU: prefill logits
-and every captured cache entry (hymba's ring past its 16-token window
-included), incremental decode, the batched server's greedy tokens, and the
-launcher, on weights carried across from the reference.
+"""The port's serving path against the reference on the CPU, for all ten
+archs: prefill logits and every captured cache entry (hymba's ring past
+its 16-token window and MLA's latents included), incremental decode, the
+batched server's greedy tokens (its refusal of qwen2-vl's embeddings, as
+the reference's), and the launcher, on weights carried across from the
+reference.
 
 Tolerance 2e-3, that of ``tests/test_serve.py`` (a few layers of fp32 sums
 taken in another order; a bf16 cache entry may round the other way where
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_arch
+from repro.configs import get_arch, list_archs
 from repro.models import transformer as JT
 from repro.serve import BatchServer as JServer
 from repro.serve import Request as JRequest
@@ -27,7 +29,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serve import BatchServer, Request
 from repro_torch.serve.engine import prefill_with_cache
 
-ARCHS = ["internlm2-1.8b", "mamba2-130m", "hymba-1.5b"]
+ARCHS = list_archs()
 CACHE_DTYPES = {"fp32": (jnp.float32, torch.float32),
                 "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = dict(atol=2e-3, rtol=2e-3)
@@ -42,6 +44,33 @@ def _carried(arch):
     return cfg, tcfg, jp, tp
 
 
+def _seq(cfg, rng, b, n):
+    """numpy inputs for positions 0..n-1: token ids (codebook ids for
+    musicgen), or embeddings with distinct (t, h, w) M-RoPE positions."""
+    if cfg.input_mode == "embeddings":
+        return {"embeds": rng.standard_normal((b, n, cfg.d_model)).astype(
+                    np.float32),
+                "positions": np.stack([np.arange(n), np.arange(n) // 4 + 1,
+                                       np.arange(n) % 4 + 2])[:, None]
+                .repeat(b, 1).astype(np.int32)}
+    shape = (b, n, cfg.n_codebooks) if cfg.n_codebooks > 1 else (b, n)
+    return {"tokens": rng.integers(0, cfg.vocab_size, shape)}
+
+
+def _at(seq, lo, hi, length=None):
+    """Positions lo..hi-1 of ``seq`` for both packages; with ``length``,
+    a decode step's inputs."""
+    part = {k: (v[:, :, lo:hi] if k == "positions" else v[:, lo:hi])
+            for k, v in seq.items()}
+    jin = {k: jnp.asarray(v) for k, v in part.items()}
+    tin = {k: torch.from_numpy(np.ascontiguousarray(v))
+           for k, v in part.items()}
+    if length is not None:
+        jin["length"] = jnp.asarray(length, jnp.int32)
+        tin["length"] = length
+    return jin, tin
+
+
 def _f32(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else
                       jnp.asarray(x, jnp.float32))
@@ -53,13 +82,10 @@ def test_prefill_with_cache_matches_the_reference(arch, cache_dtype):
     """S = 24 is past hymba's 16-slot ring, so the ring scatter wraps."""
     jd, td = CACHE_DTYPES[cache_dtype]
     cfg, tcfg, jp, tp = _carried(arch)
-    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 24))
-    want, wcache = jprefill(jp, cfg, {"tokens": jnp.asarray(toks)},
-                            max_len=32, cache_dtype=jd)
-    got, gcache = prefill_with_cache(tp, tcfg,
-                                     {"tokens": torch.from_numpy(toks)},
-                                     max_len=32, impl="kernel",
-                                     cache_dtype=td)
+    jin, tin = _at(_seq(cfg, np.random.default_rng(2), 2, 24), 0, 24)
+    want, wcache = jprefill(jp, cfg, jin, max_len=32, cache_dtype=jd)
+    got, gcache = prefill_with_cache(tp, tcfg, tin, max_len=32,
+                                     impl="kernel", cache_dtype=td)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert set(gcache) == set(wcache)
     for name in wcache:
@@ -76,20 +102,15 @@ def test_incremental_decode_matches_the_reference(arch):
     step's logits and the cache afterwards."""
     cfg, tcfg, jp, tp = _carried(arch)
     S, N = 12, 6
-    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, S + N))
-    _, jc = jprefill(jp, cfg, {"tokens": jnp.asarray(toks[:, :S])},
-                     max_len=S + N, cache_dtype=jnp.float32)
-    _, tc = prefill_with_cache(tp, tcfg,
-                               {"tokens": torch.from_numpy(toks[:, :S])},
-                               max_len=S + N, impl="kernel",
+    seq = _seq(cfg, np.random.default_rng(3), 1, S + N)
+    jin, tin = _at(seq, 0, S)
+    _, jc = jprefill(jp, cfg, jin, max_len=S + N, cache_dtype=jnp.float32)
+    _, tc = prefill_with_cache(tp, tcfg, tin, max_len=S + N, impl="kernel",
                                cache_dtype=torch.float32)
     for i in range(N):
-        want, jc = JT.decode_step(
-            jp, cfg, jc, {"tokens": jnp.asarray(toks[:, S + i:S + i + 1]),
-                          "length": jnp.asarray(S + i, jnp.int32)})
-        got, tc = TT.decode_step(
-            tp, tcfg, tc, {"tokens": torch.from_numpy(toks[:, S + i:S + i + 1]),
-                           "length": S + i})
+        jin, tin = _at(seq, S + i, S + i + 1, S + i)
+        want, jc = JT.decode_step(jp, cfg, jc, jin)
+        got, tc = TT.decode_step(tp, tcfg, tc, tin)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     for name in jc:
         np.testing.assert_allclose(_f32(tc[name]), _f32(jc[name]),
@@ -102,20 +123,16 @@ def test_decode_from_the_reference_cache(arch):
     ``load_reference_cache`` decodes in the port as in the reference."""
     cfg, tcfg, jp, tp = _carried(arch)
     S = 24
-    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, S + 2))
-    _, jc = jprefill(jp, cfg, {"tokens": jnp.asarray(toks[:, :S])},
-                     max_len=S + 2)
+    seq = _seq(cfg, np.random.default_rng(6), 2, S + 2)
+    _, jc = jprefill(jp, cfg, _at(seq, 0, S)[0], max_len=S + 2)
     tc = convert.load_reference_cache(
         jax.tree_util.tree_map(np.asarray, jc), device="cpu")
     assert {k: str(v.dtype).split(".")[-1] for k, v in tc.items()} == \
         {k: str(v.dtype) for k, v in jc.items()}
     for i in range(2):
-        want, jc = JT.decode_step(
-            jp, cfg, jc, {"tokens": jnp.asarray(toks[:, S + i:S + i + 1]),
-                          "length": jnp.asarray(S + i, jnp.int32)})
-        got, tc = TT.decode_step(
-            tp, tcfg, tc, {"tokens": torch.from_numpy(toks[:, S + i:S + i + 1]),
-                           "length": S + i})
+        jin, tin = _at(seq, S + i, S + i + 1, S + i)
+        want, jc = JT.decode_step(jp, cfg, jc, jin)
+        got, tc = TT.decode_step(tp, tcfg, tc, tin)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -144,7 +161,8 @@ def test_ring_buffer_decode_past_the_window_matches_the_reference():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_batch_server_tokens_equal_the_reference(arch):
     """Two waves (prompt lengths 20 and 8) through both servers; the port's
-    takes its default ``impl="kernel"`` (plain versions on the CPU)."""
+    takes its default ``impl="kernel"`` (plain versions on the CPU).  Both
+    refuse qwen2-vl's embedding frontend in the first wave."""
     cfg, tcfg, jp, tp = _carried(arch)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
@@ -157,6 +175,11 @@ def test_batch_server_tokens_equal_the_reference(arch):
                                 max_new_tokens=6))
         tserver.submit(Request(request_id=f"r{i}", prompt=p,
                                max_new_tokens=6))
+    if cfg.input_mode == "embeddings":
+        for server in (jserver, tserver):
+            with pytest.raises(NotImplementedError, match="embedding"):
+                server.run(max_requests=len(prompts), idle_timeout_s=0.5)
+        return
     want = jserver.run(max_requests=len(prompts), idle_timeout_s=0.5)
     got = tserver.run(max_requests=len(prompts), idle_timeout_s=0.5)
     assert [r.request_id for r in got] == [r.request_id for r in want]
@@ -188,3 +211,19 @@ def test_launch_serve_runs_on_the_host(capsys):
     # the host takes the plain versions: no kernel launch
     assert tfa.LAUNCHES["flash_attention"].count == flash0
     assert tssd.LAUNCHES["ssd_chunk_scan"].count == ssd0
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen3-moe-235b-a22b",
+                                  "arctic-480b", "qwen2-vl-2b"])
+def test_launch_serve_runs_the_new_families(arch, capsys):
+    """MLA and both MoE archs serve through the launcher on the host;
+    qwen2-vl returns 1, as the reference's launcher does."""
+    rc = tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--requests", "2", "--slots", "2", "--prompt-len",
+                       "16", "--new-tokens", "3", "--max-len", "20"])
+    out = capsys.readouterr().out
+    if arch == "qwen2-vl-2b":
+        assert rc == 1 and "embedding frontend" in out
+        return
+    assert rc == 0
+    assert "completed 2/2 requests, 6 tokens" in out
