@@ -35,6 +35,17 @@ one-rank NCCL group.  Training launches no hand-written kernel: the
 reference trains with ``impl="dense"`` and its Pallas kernels have no
 gradient.
 
+Then the launch stack: the GPipe step (``train.pipeline``) with both of
+its 2 stages (12 layers each) in one process, internlm2-1.8b at full
+width and depth, 4 microbatches of 1 × 1,024 tokens, two steps against
+two plain steps from the same seed on the same batches; and the sharding
+rules on a one-rank NCCL mesh (1, 1): internlm2-1.8b's parameters
+restored onto their ``param_pspecs`` placements, its forward under the
+mesh's rules against ``rules=None``, qwen3-moe (1 layer, full width) with
+4 MoE dispatch groups card against host, and every arch's per-rank bytes
+on the two production meshes (a fake process group).  Neither launches a
+hand-written kernel (the reference's pipeline runs ``impl="dense"``).
+
 Then the rest of the zoo, each phase with the flash launch count set to 0
 just before it and read just after: minicpm3-4b (MLA) at full width and
 depth served in 2 waves of 4 requests (1,024 and 2,048 tokens, no flash
@@ -199,6 +210,19 @@ MOE_LAYERS = 4
 MOE_WAVES = (512, 1024)
 MOE_CHECK_TOKENS = 256
 MOE_TOL = 2e-4
+# the GPipe step (both stages in one process) and the sharding rules
+GPIPE_STAGES = 2
+GPIPE_MICROBATCHES = 4
+GPIPE_STEPS = 2
+GPIPE_LOSS_TOL = 1e-5         # relative, against the plain step
+GPIPE_NORM_TOL = 1e-4         # relative (train_vs_host's)
+GPIPE_PARAM_TOL = 5e-5        # absolute (tests/test_torch_train.py's)
+GPIPE_FLIP_SHARE = 1e-4       # of elements allowed past it (sign flips)
+SHARD_MOE_LAYERS = 1
+SHARD_MOE_BATCH = 4
+SHARD_MOE_SEQ = 128
+SHARD_MOE_GROUPS = 4
+SHARD_MOE_TOL = 1e-4          # of the logits' largest magnitude
 
 
 def emit(phase: str, **fields) -> None:
@@ -1580,6 +1604,266 @@ def int8_pod(torch, TS, device):
          ef_max_abs=max(float(t.float().abs().max()) for t in ef))
 
 
+def gpipe(torch, TS, T, device):
+    """internlm2-1.8b at full width and depth (24 layers, fp32 weights and
+    AdamW moments, remat, dense attention) through the GPipe step with
+    both stages in one process on the card: 2 stages of 12 layers, 4
+    microbatches of 1 × 1,024 tokens, the ``train`` phase's schedule
+    (lr 3e-4, 10 warm-up steps).  Two pipeline steps from one seeded
+    state and two ``make_train_step`` steps from the same seed on the
+    same batches, memory released between them: losses and grad norms
+    must agree, and the parameters too, but for elements whose update
+    AdamW's first steps turn on a gradient's rounding (each step moves an
+    element by up to lr_t whatever |g|; their share is bounded).  One
+    more pipeline step runs under the profiler.  On one card the stages
+    run in turn; the bubble (S − 1)/T is the multi-device schedule's."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.train import pipeline as PP
+    cfg = get_arch(TRAIN_ARCH)
+    tc = TS.TrainConfig(lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    pc = PP.PipelineConfig(n_stages=GPIPE_STAGES,
+                           microbatches=GPIPE_MICROBATCHES)
+    it = make_batch_iterator(cfg, GPIPE_MICROBATCHES, TRAIN_SEQ, seed=1,
+                             device="cpu")
+    batches = [next(it) for _ in range(GPIPE_STEPS)]
+
+    def run(init, make):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, state = init()
+        step = make()
+        metrics, ms = [], []
+        for b in batches:
+            b = {k: v.to(device) for k, v in b.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            metrics.append({k: float(v) for k, v in m.items()})
+        return params, state, step, b, metrics, ms
+
+    params, state, step, batch, pp_m, pp_ms = run(
+        lambda: PP.init_pp_state(cfg, tc, pc, seed=0, device=device),
+        lambda: PP.make_pp_train_step(cfg, tc, pc))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    on_card(torch, (params, state), "the pipeline's train state")
+    dev_ms, launches, out = profile_step(
+        torch, lambda: step(params, state, batch))
+    del out
+    host = [t.cpu() for t in pytree.tree_leaves(params)]
+    del params, state, step
+    torch.cuda.empty_cache()
+    params, state, _, _, plain_m, plain_ms = run(
+        lambda: TS.init_train_state(cfg, tc, seed=0, device=device),
+        lambda: TS.make_train_step(cfg, tc))
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+           for a, b in zip(pp_m, plain_m)]
+    worst, n, over = 0.0, 0, {1e-7: 0, 1e-6: 0, GPIPE_PARAM_TOL: 0}
+    for a, b in zip(host, pytree.tree_leaves(params)):
+        d = (a.to(device) - b).abs()
+        worst = max(worst, float(d.max()))
+        n += d.numel()
+        for tol in over:
+            over[tol] += int((d > tol).sum())
+    del params, state, host, d
+    torch.cuda.empty_cache()
+    lr_sum = sum(float(tc.lr * min(1.0, (i + 1) / tc.warmup))
+                 for i in range(GPIPE_STEPS))
+    ticks = GPIPE_MICROBATCHES + GPIPE_STAGES - 1
+    emit("gpipe", arch=cfg.name, layers=cfg.n_layers, stages=GPIPE_STAGES,
+         layers_per_stage=cfg.n_layers // GPIPE_STAGES,
+         microbatches=GPIPE_MICROBATCHES, microbatch=[1, TRAIN_SEQ],
+         steps=GPIPE_STEPS, dtype="fp32", remat=True, impl="dense",
+         lr=tc.lr, warmup=tc.warmup, pipeline=pp_m, plain=plain_m,
+         rel_diff_per_step=rel, params_max_abs=worst, params=n,
+         params_over={str(k): v for k, v in over.items()},
+         tol_loss_rel=GPIPE_LOSS_TOL, tol_grad_norm_rel=GPIPE_NORM_TOL,
+         tol_params=GPIPE_PARAM_TOL, tol_params_over_share=GPIPE_FLIP_SHARE,
+         step_ms_each=pp_ms, plain_step_ms_each=plain_ms,
+         device_ms_per_step=dev_ms, launches_per_step=launches,
+         device_idle_share=1 - dev_ms / pp_ms[-1], peak_gb=peak_gb,
+         plain_peak_gb=plain_peak_gb, ticks=ticks,
+         bubble_of_the_schedule=(GPIPE_STAGES - 1) / ticks)
+    if not all(np.isfinite([m[k] for m in pp_m for k in m])):
+        raise AssertionError(f"non-finite pipeline metrics: {pp_m}")
+    for i, r in enumerate(rel):
+        if r["loss"] > GPIPE_LOSS_TOL or r["grad_norm"] > GPIPE_NORM_TOL:
+            raise AssertionError(f"step {i + 1}: pipeline and plain step "
+                                 f"differ {r}")
+    if not np.isfinite(worst) or worst > 2 * lr_sum \
+            or over[GPIPE_PARAM_TOL] > GPIPE_FLIP_SHARE * n:
+        raise AssertionError(f"params differ by up to {worst}, "
+                             f"{over[GPIPE_PARAM_TOL]} of {n} past "
+                             f"{GPIPE_PARAM_TOL}")
+
+
+def _nccl_world(torch):
+    """A one-rank NCCL default group on this card."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+
+
+def shard_bytes(shapes, specs, mesh, elem_bytes=None):
+    """Bytes of one rank's shards of a stacked tree of meta tensors laid
+    out by ``specs`` on ``mesh`` (each element ``elem_bytes`` long when
+    given, else its own type's)."""
+    from repro_torch.launch import mesh as TM
+    if isinstance(shapes, dict):
+        return sum(shard_bytes(shapes[k], specs[k], mesh, elem_bytes)
+                   for k in shapes)
+    n = int(np.prod(TM.local_shape(tuple(shapes.shape), specs, mesh)))
+    return n * (elem_bytes or shapes.element_size())
+
+
+def shard_rules(torch, T, device):
+    """The sharding rules on the card.  On a one-rank NCCL ``DeviceMesh``
+    of shape (1, 1), axes (data, model): internlm2-1.8b's full-width
+    parameters (fp32) saved and restored onto their ``param_pspecs``
+    placements, every leaf a DTensor with the same bits; its forward with
+    the mesh's rules equal to ``rules=None`` bit for bit, and the rules'
+    constraint on a DTensor activation.  Then qwen3-moe-235b-a22b at full
+    width, depth cut to 1 layer, one prefill of 4 × 128 tokens with 4
+    MoE groups on the card against the same call on the host
+    (``dropped_frac`` equal, logits within 1e-4 of their scale).  Last,
+    each arch's per-rank parameter (bf16) and AdamW (fp32 moments) bytes
+    on both production meshes, from the meta shapes and the specs (host
+    arithmetic) on a fake process group."""
+    import dataclasses
+    import shutil
+    import torch.distributed as dist
+    from torch.distributed.tensor import (DTensor, Replicate,
+                                          distribute_tensor)
+    from torch.utils import _pytree as pytree
+    from repro_torch.ckpt import restore, save
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.launch import mesh as TM
+    from repro_torch.models import convert
+    cfg = get_arch(TRAIN_ARCH)
+    ckpt = Path(__file__).resolve().parent / "build" / "shard_rules"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    params = T.init_params(cfg, device=device, seed=0)
+    t = time.perf_counter()
+    save(str(ckpt), 1, convert.stack_blocks(params, device="cpu"))
+    save_s = time.perf_counter() - t
+    _nccl_world(torch)
+    try:
+        mesh = TM.make_debug_mesh((1, 1))
+        rules = TM.make_rules(mesh)
+        pspecs = T.param_pspecs(cfg, rules)
+        like = convert.stack_blocks(T.param_shapes(cfg, torch.float32))
+        t = time.perf_counter()
+        got = convert.unstack_blocks(
+            restore(str(ckpt), 1, like=like, mesh=mesh, pspecs=pspecs),
+            params)
+        restore_s = time.perf_counter() - t
+        shutil.rmtree(ckpt, ignore_errors=True)
+        layered = convert.unstack_specs(pspecs, params)
+        n_leaves = 0
+        placements = set()
+        for (leaf, spec), (want, _) in zip(
+                convert.leaves_with_specs(got, layered),
+                convert.leaves_with_specs(params, layered)):
+            if not isinstance(leaf, DTensor) or \
+                    leaf.to_local().device != device:
+                raise AssertionError("a restored leaf is not a DTensor on "
+                                     f"{device}")
+            if tuple(leaf.placements) != TM.placements(spec, mesh):
+                raise AssertionError(f"placements {leaf.placements} for "
+                                     f"{spec}")
+            if not torch.equal(leaf.to_local(), want):
+                raise AssertionError("a restored leaf differs")
+            n_leaves += 1
+            placements.add(str(tuple(leaf.placements)))
+        local = pytree.tree_map(lambda d: d.to_local(), got)
+        del got
+        tok = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (2, TRAIN_SEQ), dtype=np.int32)).to(device)
+        with torch.inference_mode():
+            with_rules, _ = T.forward(local, cfg, {"tokens": tok},
+                                      rules=rules)
+            plain, _ = T.forward(params, cfg, {"tokens": tok})
+            same = bool(torch.equal(with_rules, plain))
+            act = rules.act(distribute_tensor(
+                plain, mesh, [Replicate(), Replicate()]),
+                rules.batch, None, rules.model)
+            act_same = bool(torch.equal(act.full_tensor(), plain))
+        if not same or not act_same:
+            raise AssertionError("forward with rules differs from "
+                                 "rules=None")
+        act_placements = str(tuple(act.placements))
+        backend = dist.get_backend()
+        del local, params, with_rules, plain, act
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    moe_cfg = dataclasses.replace(get_arch(MOE_ARCH),
+                                  n_layers=SHARD_MOE_LAYERS)
+    grouped = T.ShardRules(moe_groups=SHARD_MOE_GROUPS)
+    host = torch.device("cpu")
+    p_host = T.init_params(moe_cfg, device=host, seed=SEED + 5)
+    p_card = pytree.tree_map(lambda x: x.to(device), p_host)
+    tok = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
+        0, moe_cfg.vocab_size, (SHARD_MOE_BATCH, SHARD_MOE_SEQ),
+        dtype=np.int32))
+    with torch.inference_mode():
+        y_card, aux_card = T.forward(p_card, moe_cfg,
+                                     {"tokens": tok.to(device)},
+                                     rules=grouped)
+        _, aux_one = T.forward(p_card, moe_cfg, {"tokens": tok.to(device)})
+        t = time.perf_counter()
+        y_host, aux_host = T.forward(p_host, moe_cfg, {"tokens": tok},
+                                     rules=grouped)
+        host_s = time.perf_counter() - t
+    moe_diff = float((y_card.cpu() - y_host).abs().max())
+    moe_scale = float(y_host.abs().max())
+    row = {k: [float(aux_card[k]), float(aux_host[k])] for k in aux_card}
+    del p_host, p_card, y_card, y_host
+    torch.cuda.empty_cache()
+    if row["dropped_frac"][0] != row["dropped_frac"][1]:
+        raise AssertionError(f"grouped dispatch differs card/host: {row}")
+    if not np.isfinite(moe_diff) or moe_diff > SHARD_MOE_TOL * moe_scale:
+        raise AssertionError(f"grouped MoE prefill card vs host: "
+                             f"{moe_diff} > {SHARD_MOE_TOL} × {moe_scale}")
+
+    per_rank = {}
+    for multi in (False, True):
+        mesh = TM.make_production_mesh(multi_pod=multi)
+        name = "x".join(map(str, mesh.shape))
+        for fsdp in (False, True):
+            rules_p = TM.make_rules(mesh, fsdp=fsdp)
+            for arch in list_archs():
+                a_cfg = get_arch(arch)
+                shapes = convert.stack_blocks(T.param_shapes(a_cfg))
+                specs = T.param_pspecs(a_cfg, rules_p)
+                per_rank.setdefault(arch, {})[
+                    f"{name}{'_fsdp' if fsdp else ''}"] = {
+                    "params_gb": shard_bytes(shapes, specs, mesh) / 1e9,
+                    "adamw_gb": 2 * shard_bytes(shapes, specs, mesh, 4)
+                    / 1e9}
+        dist.destroy_process_group()
+    emit("shard_rules", mesh=[1, 1], axes=["data", "model"],
+         backend=backend, arch=cfg.name, restored_leaves=n_leaves,
+         placements=sorted(placements), save_s=save_s, restore_s=restore_s,
+         forward_rules_bit_equal=same, act_placements=act_placements,
+         moe_arch=moe_cfg.name, moe_reduced="n_layers 94 -> 1",
+         moe_tokens=[SHARD_MOE_BATCH, SHARD_MOE_SEQ],
+         moe_groups=SHARD_MOE_GROUPS, moe_card_vs_host=row,
+         moe_dropped_frac_one_group=float(aux_one["dropped_frac"]),
+         moe_max_abs=moe_diff, moe_scale=moe_scale,
+         moe_tol_of_scale=SHARD_MOE_TOL, moe_host_s=host_s,
+         per_rank=per_rank)
+
+
 # --- the rest of the paper's framework: sharded DES, examples, B5, A6 -----
 
 
@@ -2269,6 +2553,12 @@ def main() -> int:
     train_vs_host(torch, TS, T, device)
     train_resume(torch, TL, TS, device)
     int8_pod(torch, TS, device)
+
+    # the launch stack: the GPipe step at full width (both stages in one
+    # process) against the plain step, and the sharding rules on a
+    # one-rank NCCL mesh
+    gpipe(torch, TS, T, device)
+    shard_rules(torch, T, device)
 
     # the rest of the zoo: MLA, M-RoPE with patch embeddings, MoE (the
     # flash kernel serves the GQA prefills; MLA's attention is dense)

@@ -17,7 +17,10 @@ with its on-disk format, so either package restores the other's files.
   key into the structure of ``like`` (tensors, meta tensors included;
   other leaves keep the file's type), cast to like's types, on ``device`` (the
   card unless another is named): a checkpoint written on one device
-  restores onto whatever device is alive now.
+  restores onto whatever device is alive now.  With ``mesh`` (a
+  ``DeviceMesh``) and ``pspecs`` (spec tuples in like's structure), each
+  leaf becomes a ``DTensor`` with its spec's placements on that mesh —
+  resharding onto whatever mesh is alive now.
 * ``CheckpointManager`` — keep-last-N rotation + async save (the train
   driver checkpoints without stalling the step loop).
 """
@@ -123,11 +126,38 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _specs_like(like, pspecs):
+    """The spec of each leaf of ``like``, in :func:`_flatten_with_paths`'
+    order (spec tuples are leaves here, not trees)."""
+    if isinstance(like, dict):
+        return [sp for k in sorted(like)
+                for sp in _specs_like(like[k], pspecs[k])]
+    if isinstance(like, (list, tuple)):
+        return [sp for v, p in zip(like, pspecs)
+                for sp in _specs_like(v, p)]
+    return [pspecs]
+
+
 def restore(directory: str, step: Optional[int] = None, *, like: Any,
-            device=None) -> Any:
+            device=None, mesh=None, pspecs: Any = None) -> Any:
     """Restore into the structure of ``like``, each leaf cast to like's
-    dtype and placed on ``device`` (``cuda:0`` unless another is named)."""
-    device = default_device(device)
+    dtype and placed on ``device`` (``cuda:0`` unless another is named),
+    or, with ``mesh`` and ``pspecs``, distributed as a ``DTensor`` by its
+    spec on ``mesh`` (its device type)."""
+    if mesh is not None and pspecs is not None:
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.launch.mesh import placements
+        device = default_device(mesh.device_type)
+        specs = iter(_specs_like(like, pspecs))
+
+        def place(t):
+            return distribute_tensor(t.to(device), mesh,
+                                     placements(next(specs), mesh))
+    else:
+        device = default_device(device)
+
+        def place(t):
+            return t.to(device)
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -144,7 +174,7 @@ def restore(directory: str, step: Optional[int] = None, *, like: Any,
         t = _read_leaf(os.path.join(path, entry["file"]), entry["dtype"])
         want = (leaf_like.dtype if isinstance(leaf_like, torch.Tensor)
                 else t.dtype)
-        restored.append(t.to(device=device, dtype=want))
+        restored.append(place(t.to(dtype=want)))
     return _unflatten(like, restored)
 
 
@@ -182,13 +212,14 @@ class CheckpointManager:
             self._pending.join()
             self._pending = None
 
-    def restore_latest(self, like: Any, device=None):
+    def restore_latest(self, like: Any, device=None, mesh=None,
+                       pspecs=None):
         self.wait()
         step = latest_step(self.directory)
         if step is None:
             return None, None
         return step, restore(self.directory, step, like=like,
-                             device=device)
+                             device=device, mesh=mesh, pspecs=pspecs)
 
 
 def _snapshot(tree):

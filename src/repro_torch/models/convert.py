@@ -10,6 +10,9 @@ neither JAX nor the reference themselves.  :func:`stack_blocks`,
 tree shaped like the parameters (AdamW's ``mu`` and ``nu``, the error
 buffers of the int8 compression, a whole train state): checkpoints are
 written in the reference's layout, so either package restores them.
+:func:`unstack_specs` does for partition specs what :func:`unstack_blocks`
+does for values, and :func:`leaves_with_specs` pairs each leaf with its
+spec.
 """
 from __future__ import annotations
 
@@ -82,6 +85,33 @@ def unstack_blocks(tree, like):
         return [unstack_blocks(_map(tree, lambda t, i=i: t[i]), v)
                 for i, v in enumerate(like)]
     return tree
+
+
+def unstack_specs(specs, like):
+    """A spec tree in the reference's stacked layout (``T.param_pspecs``;
+    leaves are tuples) laid over a port tree ``like``: wherever ``like``
+    holds a list of per-layer trees, each entry gets the stacked specs
+    with their leading (layer) entry dropped."""
+    if isinstance(like, dict):
+        return {k: unstack_specs(specs[k], v) for k, v in like.items()}
+    if isinstance(like, list):
+        layer = _map(specs, lambda spec: spec[1:])
+        return [unstack_specs(layer, v) for v in like]
+    return specs
+
+
+def leaves_with_specs(tree, specs):
+    """(leaf, spec) pairs of a tree and a spec tree laid over it (dicts
+    and lists walked alike, spec tuples taken whole), in the tree's
+    order."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from leaves_with_specs(tree[k], specs[k])
+    elif isinstance(tree, list):
+        for v, spec in zip(tree, specs):
+            yield from leaves_with_specs(v, spec)
+    else:
+        yield tree, specs
 
 
 def to_reference(tree):

@@ -452,11 +452,10 @@ def moe_forward(p, x, cfg: ArchConfig, *, shard_experts=None,
     ``groups > 1`` takes GShard-style local dispatch groups
     (:func:`_moe_forward_grouped`), only when each group fills its
     capacity floor (the reference's gate); otherwise, as with
-    ``groups=1``, all tokens form one group.  ``shard_experts`` waits for
-    the sharding rules (ROADMAP A9.3): only ``None`` is accepted."""
-    if shard_experts is not None:
-        raise NotImplementedError("shard_experts needs the sharding rules "
-                                  "(ROADMAP A9.3); pass None")
+    ``groups=1``, all tokens form one group.  ``shard_experts`` constrains
+    the expert buffers before and after the expert products
+    (``transformer._expert_constraint``): (E, C, D) ungrouped, (G, E, C, D)
+    grouped, as in the reference."""
     m = cfg.moe
     t = x.shape[0] * x.shape[1]
     if (groups > 1 and t % groups == 0
@@ -464,6 +463,16 @@ def moe_forward(p, x, cfg: ArchConfig, *, shard_experts=None,
             / m.n_experts >= 8):
         return _moe_forward_grouped(p, x, cfg, shard_experts, groups)
     return _moe_forward_grouped(p, x, cfg, shard_experts, 1)
+
+
+def _constrain(shard_experts, buf):
+    """``shard_experts`` on a (G, E, C, D) buffer; at one group, on the
+    reference's ungrouped (E, C, D) form."""
+    if shard_experts is None:
+        return buf
+    if buf.shape[0] == 1:
+        return shard_experts(buf[0])[None]
+    return shard_experts(buf)
 
 
 def _moe_forward_grouped(p, x, cfg: ArchConfig, shard_experts, groups: int):
@@ -493,10 +502,12 @@ def _moe_forward_grouped(p, x, cfg: ArchConfig, shard_experts, groups: int):
     src = xf.reshape(g * tg, d)
     for j in range(k):                                       # k small
         buf.index_copy_(0, flat[:, :, j].reshape(-1), src)
-    eb = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d)
+    eb = _constrain(shard_experts,
+                    buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d))
     hg = torch.einsum("gecd,edf->gecf", eb, p["w_gate"])
     hu = torch.einsum("gecd,edf->gecf", eb, p["w_up"])
-    out = torch.einsum("gecf,efd->gecd", silu(hg) * hu, p["w_down"])
+    out = _constrain(shard_experts, torch.einsum(
+        "gecf,efd->gecd", silu(hg) * hu, p["w_down"]))
     out_flat = torch.cat([out.reshape(g, e * cap, d),
                           torch.zeros((g, 1, d), dtype=out.dtype,
                                       device=out.device)], 1).reshape(-1, d)

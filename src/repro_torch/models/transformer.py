@@ -18,11 +18,22 @@ codebook or embedding inputs; RoPE, M-RoPE or none).
 * The embedding frontend (qwen2-vl-2b) takes ``inputs["embeds"]``
   (B,S,D) and M-RoPE ``inputs["positions"]`` (3,B,S); such a model has no
   ``embed`` table.
-
-``ShardRules``/``param_pspecs`` wait for the launch stack (ROADMAP A9).
+* Sharding: :class:`ShardRules` maps logical dims to mesh axes, and
+  :func:`param_pspecs` / :func:`cache_pspecs` give the reference's
+  partition specs as plain tuples (one entry a dimension: an axis name,
+  ``None`` or a tuple of names), blocks stacked with a leading layer
+  entry as in the reference; ``convert.unstack_specs`` lays them over the
+  port's per-layer lists.  ``rules=`` reaches every place where the
+  reference constrains an activation; on a plain tensor the constraint is
+  the identity, on a ``DTensor`` a redistribution.  ``rules.moe_groups``
+  sets the MoE dispatch groups, which changes the numbers (GShard's
+  per-group capacity), as in the reference.  :func:`param_shapes` builds
+  the parameters on the ``meta`` device (``jax.eval_shape``'s
+  counterpart).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -42,6 +53,65 @@ def default_device(device=None) -> torch.device:
         raise RuntimeError(f"{dev} was asked for and no CUDA device is "
                            f"available; pass device='cpu' to run on the host")
     return dev
+
+
+# ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+
+
+def P(*entries) -> tuple:
+    """A partition spec as a plain tuple, one entry a dimension, normalised
+    as ``jax.sharding.PartitionSpec`` normalises its entries: a tuple of
+    one axis name becomes the name, an empty tuple ``None``.  So
+    ``P(*spec) == tuple(jax.sharding.PartitionSpec(*spec))``."""
+    def entry(e):
+        if isinstance(e, (tuple, list)):
+            return None if not e else e[0] if len(e) == 1 else tuple(e)
+        return e
+    return tuple(entry(e) for e in entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardRules:
+    """Maps logical dims to mesh axes. ``None`` fields replicate."""
+    batch: tuple = ("data",)          # ("pod","data") on the multi-pod mesh
+    model: Optional[str] = "model"
+    fsdp: Optional[str] = None        # ZeRO-3 axis for params (usually "data")
+    seq: Optional[str] = None         # sequence-parallel axis for activations
+    moe_groups: int = 1               # local dispatch groups (= batch shards)
+    model_size: int = 1               # mesh size of the model axis
+
+    def act(self, x, *spec):
+        """The activation constraint: a ``DTensor`` is redistributed to the
+        spec's placements on its own mesh; a plain tensor, whose one copy
+        is the whole value, comes back unchanged (the reference's
+        constraint on a one-device mesh is likewise the identity)."""
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        from repro_torch.launch.mesh import placements
+        return x.redistribute(x.device_mesh,
+                              placements(P(*spec), x.device_mesh))
+
+
+NO_RULES = None
+
+
+def _c(rules, x, *spec):
+    if rules is None:
+        return x
+    return rules.act(x, *spec)
+
+
+def _expert_constraint(rules):
+    """MoE buffer constraint: (E,C,D) -> model on E; grouped (G,E,C,D) ->
+    batch axes on G, model on E (group-local dispatch)."""
+    def f(e):
+        if e.ndim == 4:
+            return _c(rules, e, rules.batch, rules.model, None, None)
+        return _c(rules, e, rules.model, None, None)
+    return f
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +154,10 @@ def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator]
     :mod:`repro_torch.models.convert`."""
     device = default_device(device)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
+        # meta tensors draw nothing, and a meta generator does not exist
+        generator = torch.Generator(
+            device="cpu" if device.type == "meta" else device
+        ).manual_seed(seed)
     params = {}
     v, d, kb = cfg.padded_vocab_size, cfg.d_model, cfg.n_codebooks
     if cfg.input_mode == "tokens":
@@ -103,6 +176,12 @@ def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator]
     return params
 
 
+def param_shapes(cfg: ArchConfig, dtype=torch.bfloat16):
+    """The parameters as meta tensors (shapes and types, no memory): the
+    counterpart of the reference's ``jax.eval_shape`` of ``init_params``."""
+    return init_params(cfg, device="meta", dtype=dtype)
+
+
 def param_count(params) -> int:
     """Elements over every tensor of a parameter tree."""
     if isinstance(params, torch.Tensor):
@@ -110,6 +189,82 @@ def param_count(params) -> int:
     if isinstance(params, dict):
         return sum(param_count(v) for v in params.values())
     return sum(param_count(v) for v in params)
+
+
+# ---------------------------------------------------------------------------
+# partition specs (the reference's tree: blocks stacked, leading layer entry)
+# ---------------------------------------------------------------------------
+
+
+def _block_pspecs(cfg: ArchConfig, r: ShardRules):
+    m, f = r.model, r.fsdp
+    rep1 = P(None, None)                       # stacked (L, d) norms
+    p = {"ln1": rep1}
+    if cfg.attn_kind in ("gqa", "hybrid"):
+        # TP shards whole heads; where the kv heads do not divide the model
+        # axis, the (small) kv projections are replicated instead
+        # (Megatron-style), as in the reference
+        kv_rep = (r.model_size > 1
+                  and cfg.n_kv_heads % max(r.model_size, 1) != 0)
+        mkv = None if kv_rep else m
+        attn = {"wq": P(None, f, m), "wk": P(None, f, mkv),
+                "wv": P(None, f, mkv), "wo": P(None, m, f)}
+    if cfg.attn_kind == "gqa":
+        p["attn"] = attn
+    elif cfg.attn_kind == "mla":
+        p["attn"] = {
+            "wq_a": P(None, f, None), "q_norm": rep1,
+            "wq_b": P(None, None, m),
+            "wkv_a": P(None, f, None), "kv_norm": rep1,
+            "wkv_b": P(None, None, m),
+            "wo": P(None, m, f),
+        }
+    if cfg.attn_kind in ("none", "hybrid"):
+        # the packed SSM projections are not TP-shardable: replicated over
+        # 'model', sharded only on the FSDP axis
+        ssm = {"in_proj": P(None, f, None),
+               "conv_w": P(None, None, None), "conv_b": P(None, None),
+               "A_log": P(None, None), "D": P(None, None),
+               "dt_bias": P(None, None),
+               "norm": P(None, None), "out_proj": P(None, None, f)}
+        if cfg.attn_kind == "none":
+            p["ssm"] = ssm
+        else:
+            p["mixer"] = {"attn": attn, "ssm": ssm,
+                          "attn_norm": rep1, "ssm_norm_out": rep1}
+    if cfg.moe is not None:
+        p["ln2"] = rep1
+        moe = {"router": P(None, None, None),
+               "w_gate": P(None, m, f, None),
+               "w_up": P(None, m, f, None),
+               "w_down": P(None, m, None, f)}
+        if cfg.moe.dense_residual:
+            moe["dense"] = {"w_up": P(None, f, m), "w_down": P(None, m, f),
+                            **({"w_gate": P(None, f, m)}
+                               if cfg.ffn_kind == "swiglu" else {})}
+        p["moe"] = moe
+    elif cfg.d_ff:
+        p["ln2"] = rep1
+        ffn = {"w_up": P(None, f, m), "w_down": P(None, m, f)}
+        if cfg.ffn_kind == "swiglu":
+            ffn["w_gate"] = P(None, f, m)
+        p["ffn"] = ffn
+    return p
+
+
+def param_pspecs(cfg: ArchConfig, rules: ShardRules):
+    """The reference's spec tree (``blocks`` stacked: each spec has a
+    leading ``None`` for the layer axis); ``convert.unstack_specs`` lays
+    it over the port's per-layer lists."""
+    m, f = rules.model, rules.fsdp
+    specs = {"ln_f": P(None), "blocks": _block_pspecs(cfg, rules)}
+    if cfg.input_mode == "tokens":
+        specs["embed"] = (P(m, f) if cfg.n_codebooks == 1
+                          else P(None, m, f))
+    if not cfg.tie_embeddings:
+        specs["head"] = (P(f, m) if cfg.n_codebooks == 1
+                         else P(None, f, m))
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -132,11 +287,12 @@ def _embed_inputs(params, cfg: ArchConfig, inputs):
     return out
 
 
-def _logits(params, cfg: ArchConfig, x):
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    if cfg.n_codebooks == 1:
-        return x @ params["head"]
+def _logits(params, cfg: ArchConfig, x, rules=None):
+    if cfg.tie_embeddings or cfg.n_codebooks == 1:
+        logits = (x @ params["embed"].T if cfg.tie_embeddings
+                  else x @ params["head"])
+        return _c(rules, logits, (rules.batch if rules else None), None,
+                  (rules.model if rules else None))
     return torch.einsum("bsd,kdv->bskv", x, params["head"])
 
 
@@ -157,11 +313,14 @@ def _rope_dim(cfg: ArchConfig) -> int:
             else cfg.head_dim)
 
 
-def _ffn(lp, x, cfg: ArchConfig):
+def _ffn(lp, x, cfg: ArchConfig, rules=None):
     """The block's second half: (x, aux) with MoE's aux losses, else {}."""
     if cfg.moe is not None:
         h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        y, aux = L.moe_forward(lp["moe"], h2, cfg)
+        y, aux = L.moe_forward(
+            lp["moe"], h2, cfg,
+            shard_experts=(_expert_constraint(rules) if rules else None),
+            groups=(rules.moe_groups if rules else 1))
         return x + y, aux
     if cfg.d_ff:
         h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -169,7 +328,14 @@ def _ffn(lp, x, cfg: ArchConfig):
     return x, {}
 
 
-def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, impl, chunk):
+def _act_spec(rules):
+    """The (B, S, D) activations' spec: batch axes, sequence axis."""
+    return ((rules.batch if rules else None), rules.seq if rules else None,
+            None)
+
+
+def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, impl, chunk,
+                  rules: Optional[ShardRules] = None):
     """One decoder block. Returns (x, aux_dict)."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "gqa":
@@ -183,10 +349,12 @@ def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, impl, chunk):
                                 chunk=chunk)
     else:                                           # pure SSM (mamba2)
         return x + L.ssm_forward(lp["ssm"], h, cfg, impl=impl), {}
-    return _ffn(lp, x + a, cfg)
+    x, aux = _ffn(lp, _c(rules, x + a, *_act_spec(rules)), cfg, rules)
+    return _c(rules, x, *_act_spec(rules)), aux
 
 
 def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
+            rules: Optional[ShardRules] = None,
             remat: Optional[bool] = None):
     """Full-sequence forward. Returns (logits, aux): for MoE archs the
     router's ``lb_loss`` and ``z_loss`` summed over the layers and
@@ -205,7 +373,7 @@ def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
             "impl='kernel' has no gradient: the kernels, like the "
             "reference's Pallas kernels, are forward-only; differentiate "
             "impl='dense' or 'chunked'")
-    x = _embed_inputs(params, cfg, inputs)
+    x = _c(rules, _embed_inputs(params, cfg, inputs), *_act_spec(rules))
     cos, sin = _positions_cos_sin(cfg, inputs, x.shape[1], _rope_dim(cfg),
                                   x.device)
     aux = ({"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
@@ -214,41 +382,47 @@ def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
         if remat and grad:
             # the blocks draw no random numbers: no RNG state to replay
             x, a = checkpoint(block_forward, lp, x, cos, sin, cfg, impl=impl,
-                              chunk=chunk, use_reentrant=False,
+                              chunk=chunk, rules=rules, use_reentrant=False,
                               preserve_rng_state=False)
         else:
             x, a = block_forward(lp, x, cos, sin, cfg, impl=impl,
-                                 chunk=chunk)
+                                 chunk=chunk, rules=rules)
         for k, v in a.items():
             aux[k] = aux[k] + v
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     if cfg.moe is not None:
         aux["dropped_frac"] = aux["dropped_frac"] / cfg.n_layers
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, rules), aux
 
 
-def loss_fn(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
-            remat: Optional[bool] = None):
-    """Next-token cross entropy, plus ``lb_loss + z_loss`` for MoE archs.
-    Returns (loss, metrics): ``ce`` and ``loss``, and for MoE archs the
-    three aux values of :func:`forward`.
-
-    The vocab-pad columns are masked to −1e30 before an fp32
-    log-sum-exp, so no gradient reaches the zero pad columns of the head.
-    The gold logit is a ``gather`` of the label's column: the reference
-    sums logits × one-hot, a single nonzero product, so the values are
-    the same without a (B, S, V) one-hot.  Labels are (B, S), or
-    (B, S, K) against (B, S, K, V) logits for codebook archs."""
-    logits, aux = forward(params, cfg, inputs, impl=impl, chunk=chunk,
-                          remat=remat)
+def token_ce(logits, labels, cfg: ArchConfig):
+    """Each label's cross entropy, ``lse − gold``, in fp32: the
+    vocab-pad columns masked to −1e30 before an fp32 log-sum-exp, the
+    gold logit a ``gather`` of the label's column (the reference sums
+    logits × one-hot, a single nonzero product, so the values are the
+    same without a (…, V) one-hot)."""
     vp = cfg.padded_vocab_size
     if vp != cfg.vocab_size:
         pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits.float()).to(logits.dtype)
     lse = torch.logsumexp(logits.float(), dim=-1)
-    labels = inputs["labels"].long()
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0].float()
-    ce = (lse - gold).mean()
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - gold.float()
+
+
+def loss_fn(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
+            rules: Optional[ShardRules] = None,
+            remat: Optional[bool] = None):
+    """Next-token cross entropy, plus ``lb_loss + z_loss`` for MoE archs.
+    Returns (loss, metrics): ``ce`` and ``loss``, and for MoE archs the
+    three aux values of :func:`forward`.
+
+    The mean of :func:`token_ce`, so no gradient reaches the zero pad
+    columns of the head.  Labels are (B, S), or (B, S, K) against
+    (B, S, K, V) logits for codebook archs."""
+    logits, aux = forward(params, cfg, inputs, impl=impl, chunk=chunk,
+                          rules=rules, remat=remat)
+    ce = token_ce(logits, inputs["labels"], cfg).mean()
     loss = ce
     metrics = {"ce": ce}
     if cfg.moe is not None:
@@ -298,6 +472,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return c
 
 
+def cache_pspecs(cfg: ArchConfig, rules: ShardRules):
+    """Decode caches: batch on the batch axes, the long (sequence) dim on
+    model (context-parallel decode); the SSM state on the batch axes
+    only (its head count does not divide the model axis)."""
+    b = rules.batch
+    m = rules.model
+    c = {}
+    if cfg.attn_kind in ("gqa", "hybrid"):
+        c["k"] = P(None, b, m, None, None)
+        c["v"] = P(None, b, m, None, None)
+    if cfg.attn_kind == "mla":
+        c["ckv"] = P(None, b, m, None)
+        c["krope"] = P(None, b, m, None)
+    if cfg.attn_kind in ("none", "hybrid"):
+        c["ssm"] = P(None, b, None, None, None)
+        c["conv"] = P(None, b, None, None)
+    return c
+
+
 def _store(cache, name: str, layer: int, value) -> None:
     """Write one layer's new state into the stacked cache in place.  A
     state whose type is wider than the cache's (the fp32 conv window over
@@ -317,7 +510,7 @@ def _ring(cfg: ArchConfig, size: int, length: int):
 
 
 def block_decode(lp, x, cache, layer: int, length: int, cos, sin,
-                 cfg: ArchConfig):
+                 cfg: ArchConfig, rules: Optional[ShardRules] = None):
     """One block of one decode step; updates ``cache`` (the stacked dict)
     at ``layer`` in place.  Returns x."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -344,10 +537,11 @@ def block_decode(lp, x, cache, layer: int, length: int, cos, sin,
         _store(cache, "ssm", layer, st)
         _store(cache, "conv", layer, conv)
         return x + y
-    return _ffn(lp, x, cfg)[0]
+    return _ffn(lp, x, cfg, rules)[0]
 
 
-def decode_step(params, cfg: ArchConfig, cache, inputs):
+def decode_step(params, cfg: ArchConfig, cache, inputs, *,
+                rules: Optional[ShardRules] = None):
     """One serve step: new token at position ``inputs['length']`` (an int).
 
     inputs: tokens (B,1) or (B,1,K) / embeds (B,1,D); positions (3,B,1)
@@ -365,6 +559,6 @@ def decode_step(params, cfg: ArchConfig, cache, inputs):
     else:
         cos = sin = None
     for i, lp in enumerate(params["blocks"]):
-        x = block_decode(lp, x, cache, i, length, cos, sin, cfg)
+        x = block_decode(lp, x, cache, i, length, cos, sin, cfg, rules)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, rules), cache

@@ -7,7 +7,11 @@ optimizer, ported from ``repro.train.step``.
   of a ``torch.distributed`` group (``grad_compression='int8_pod'``, one
   rank a pod; :func:`make_compressed_train_step` splits the batch over
   the group as the reference's ``shard_map`` does over ``'pod'``),
-* AdamW / Adafactor per arch config, the reference's formulas.
+* AdamW / Adafactor per arch config, the reference's formulas,
+* the reference's sharding rules (``rules=``, into ``loss_fn``), the
+  train state's partition specs (:func:`train_state_pspecs`, the
+  reference's stacked tree of tuples) and its meta shapes
+  (:func:`train_state_shapes`).
 
 Gradients come from ``torch.autograd.grad`` over leaves detached from the
 caller's tensors, so a step never mutates its inputs: it returns new
@@ -92,12 +96,73 @@ def init_state(cfg: ArchConfig, tc: TrainConfig, params):
     return state
 
 
-def _grads(cfg: ArchConfig, tc: TrainConfig, params, batch):
+def train_state_shapes(cfg: ArchConfig, tc: TrainConfig,
+                       dtype=torch.bfloat16):
+    """(params, state) as meta tensors, no memory: the counterpart of the
+    reference's ``jax.eval_shape`` of ``init_train_state``."""
+    return init_train_state(cfg, tc, device="meta", dtype=dtype)
+
+
+def _factored_spec(spec, ndim, drop_axis):
+    parts = list(spec) + [None] * (ndim - len(spec))
+    del parts[drop_axis]
+    return T.P(*parts)
+
+
+def _stacked_ndims(tree):
+    """Each leaf's ndim in the reference's stacked layout: a list of
+    per-layer trees counts one dimension more than its entries."""
+    if isinstance(tree, dict):
+        return {k: _stacked_ndims(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return convert._map(_stacked_ndims(tree[0]), lambda n: n + 1)
+    return tree.ndim
+
+
+def train_state_pspecs(cfg: ArchConfig, tc: TrainConfig, rules: T.ShardRules,
+                       params_tree):
+    """(param specs, state specs) in the reference's stacked layout, equal
+    to its ``tuple(P)`` leaf for leaf.  ``params_tree`` (port or stacked
+    layout, meta tensors welcome) gives Adafactor's factored specs the
+    stacked leaves' ranks.  The port's Adafactor state is stacked as
+    these specs are; AdamW's ``mu``/``nu`` follow the params' lists, so
+    lay the specs over a port state with ``convert.unstack_specs``."""
+    pspecs = T.param_pspecs(cfg, rules)
+    if cfg.optimizer == "adafactor":
+        def per_leaf(ndims, specs):
+            if isinstance(ndims, dict):
+                return {k: per_leaf(ndims[k], specs[k]) for k in ndims}
+            if ndims >= 2:
+                return {"vr": _factored_spec(specs, ndims, ndims - 1),
+                        "vc": _factored_spec(specs, ndims, ndims - 2)}
+            return {"v": specs}
+        opt_spec = {"v": per_leaf(_stacked_ndims(params_tree), pspecs)}
+    else:
+        opt_spec = {"mu": pspecs, "nu": pspecs}
+    state_spec = {"opt": opt_spec, "step": T.P()}
+    if tc.grad_compression == "int8_pod":
+        state_spec["ef"] = pspecs
+    return pspecs, state_spec
+
+
+def batch_pspec(cfg: ArchConfig, rules: T.ShardRules):
+    b = rules.batch
+    spec = {"tokens": T.P(b, None), "labels": T.P(b, None)}
+    if cfg.n_codebooks > 1:
+        spec = {"tokens": T.P(b, None, None), "labels": T.P(b, None, None)}
+    if cfg.input_mode == "embeddings":
+        spec = {"embeds": T.P(b, None, None), "positions": T.P(None, b, None),
+                "labels": T.P(b, None)}
+    return spec
+
+
+def _grads(cfg: ArchConfig, tc: TrainConfig, params, batch, rules=None):
     """(grads, metrics) of ``loss_fn`` at ``params`` on ``batch``."""
     leaves, spec = pytree.tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in leaves]
     loss, metrics = T.loss_fn(pytree.tree_unflatten(leaves, spec), cfg,
-                              batch, impl=tc.attn_impl, chunk=tc.attn_chunk)
+                              batch, impl=tc.attn_impl, chunk=tc.attn_chunk,
+                              rules=rules)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, leaves)]
@@ -117,18 +182,19 @@ def _split(batch, m: int):
     return [{k: parts[k][i] for k in batch} for i in range(m)]
 
 
-def compute_grads(cfg: ArchConfig, tc: TrainConfig, params, batch):
+def compute_grads(cfg: ArchConfig, tc: TrainConfig, params, batch,
+                  rules=None):
     """(grads, metrics), accumulated over ``tc.microbatches`` in
     ``accum_dtype``, averaged and cast to each parameter's type."""
     m = tc.microbatches
     if m == 1:
-        return _grads(cfg, tc, params, batch)
+        return _grads(cfg, tc, params, batch, rules)
     accum = getattr(torch, tc.accum_dtype)
     acc_g = pytree.tree_map(lambda p: torch.zeros(p.shape, dtype=accum,
                                                   device=p.device), params)
     acc_m = None
     for micro in _split(batch, m):
-        g, metrics = _grads(cfg, tc, params, micro)
+        g, metrics = _grads(cfg, tc, params, micro, rules)
         acc_g = pytree.tree_map(lambda a, x: a + x.to(accum), acc_g, g)
         if acc_m is None:
             acc_m = {k: torch.zeros((), dtype=torch.float32,
@@ -139,10 +205,12 @@ def compute_grads(cfg: ArchConfig, tc: TrainConfig, params, batch):
     return g, acc_m
 
 
-def _apply(opt, tc: TrainConfig, params, state, grad_fn, group):
+def _apply(opt, tc: TrainConfig, params, state, grad_fn, group,
+           clip=clip_by_global_norm):
     """The step around ``grad_fn() -> (grads, metrics)``: int8 reduce,
-    clip, update, add in fp32, count the step.  Each gradient tree is
-    referenced here alone, so rebinding ``grads`` frees the one before."""
+    clip (``clip(grads, max_norm) -> (grads, norm)``), update, add in
+    fp32, count the step.  Each gradient tree is referenced here alone,
+    so rebinding ``grads`` frees the one before."""
     grads, metrics = grad_fn()
     new_state = dict(state)
     if tc.grad_compression == "int8_pod":
@@ -153,7 +221,7 @@ def _apply(opt, tc: TrainConfig, params, state, grad_fn, group):
         grads = pytree.tree_map(lambda g, p: g.to(p.dtype),
                                 convert.unstack_blocks(grads, params), params)
         new_state["ef"] = convert.unstack_blocks(ef, params)
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    grads, gnorm = clip(grads, tc.grad_clip)
     updates, new_state["opt"] = opt.update(grads, state["opt"], params,
                                            state["step"])
     del grads                          # frees a parameter-sized tree now
@@ -163,33 +231,40 @@ def _apply(opt, tc: TrainConfig, params, state, grad_fn, group):
     return new_params, new_state, {**metrics, "grad_norm": gnorm}
 
 
-def make_train_step(cfg: ArchConfig, tc: TrainConfig, group=None):
-    """``step(params, state, batch) -> (params, state, metrics)``.  With
-    ``grad_compression='int8_pod'`` the gradients go through the int8
-    reduction over ``group`` (None: this rank alone, the p = 1 form)."""
+def make_train_step(cfg: ArchConfig, tc: TrainConfig,
+                    rules: Optional[T.ShardRules] = None, group=None):
+    """``step(params, state, batch) -> (params, state, metrics)``, the
+    model under ``rules``.  With ``grad_compression='int8_pod'`` the
+    gradients go through the int8 reduction over ``group`` (None: this
+    rank alone, the p = 1 form)."""
     opt = _opt(cfg, tc)
 
     def train_step(params, state, batch):
         return _apply(opt, tc, params, state,
-                      lambda: compute_grads(cfg, tc, params, batch), group)
+                      lambda: compute_grads(cfg, tc, params, batch, rules),
+                      group)
 
     return train_step
 
 
-def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group):
+def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group,
+                               rules: Optional[T.ShardRules] = None):
     """int8-compressed data parallelism over the ranks of ``group``, the
     counterpart of the reference's step under ``shard_map`` manual on
     ``'pod'``: params and state are replicated, every rank is given the
     same global batch and takes its own slice of it (positions (3,B,S)
     on dim 1), the gradient reduction is the explicit int8 psum with
     error feedback in ``state['ef']``, and the metrics are averaged over
-    the group."""
+    the group.  The model runs under ``rules`` with ``'pod'`` taken out
+    of the batch axes, as the reference's inner rules are."""
     if tc.grad_compression != "int8_pod":
         raise ValueError("make_compressed_train_step needs "
                          "grad_compression='int8_pod'")
     opt = _opt(cfg, tc)
     rank = dist.get_rank(group)
     p = dist.get_world_size(group)
+    inner = rules and dataclasses.replace(
+        rules, batch=tuple(a for a in rules.batch if a != "pod"))
 
     def pmean(v):
         v = v.clone()                   # "ce" and "loss" share storage
@@ -199,8 +274,8 @@ def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group):
     def step_fn(params, state, batch):
         local = _split(batch, p)[rank]
         params, state, metrics = _apply(
-            opt, tc, params, state, lambda: _grads(cfg, tc, params, local),
-            group)
+            opt, tc, params, state,
+            lambda: _grads(cfg, tc, params, local, inner), group)
         return params, state, {k: pmean(v) for k, v in metrics.items()}
 
     return step_fn

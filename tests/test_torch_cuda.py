@@ -678,6 +678,79 @@ def test_cuda_compressed_psum_on_one_rank_nccl(sm90_device):
     torch.testing.assert_close(avg + new_err, target, atol=1e-6, rtol=0)
 
 
+def test_cuda_pipeline_matches_plain_step(sm90_device):
+    """The GPipe step with both stages in one process on the card (reduced
+    internlm2-1.8b, 2 stages, 4 microbatches of one row): two steps
+    against make_train_step's from the same seed on the same batches —
+    loss 1e-5 relative, grad norm 1e-4 relative, params within 5e-5."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.train import pipeline as PP
+    cfg, tc, TS, batches = _train_setup()
+    pc = PP.PipelineConfig(n_stages=2, microbatches=4)
+    pp, ps = PP.init_pp_state(cfg, tc, pc, seed=1, device=sm90_device)
+    p, s = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    step = PP.make_pp_train_step(cfg, tc, pc)
+    plain = TS.make_train_step(cfg, tc)
+    for b in batches[:2]:
+        b = {k: v.to(sm90_device) for k, v in b.items()}
+        pp, ps, m = step(pp, ps, b)
+        p, s, mp = plain(p, s, b)
+        np.testing.assert_allclose(float(m["loss"]), float(mp["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(mp["grad_norm"]), rtol=1e-4)
+    for a, b in zip(pytree.tree_leaves((pp, ps)), pytree.tree_leaves((p, s))):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().float().numpy(),
+                                   b.cpu().float().numpy(), atol=5e-5,
+                                   rtol=0)
+
+
+def test_cuda_restore_onto_one_rank_nccl_mesh(sm90_device, tmp_path):
+    """Reduced internlm2-1.8b's card parameters saved and restored onto a
+    one-rank NCCL mesh (1, 1) by ``param_pspecs``: every leaf a DTensor
+    on the card with its spec's placements and the same bits; the rules'
+    constraint redistributes a DTensor activation there."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.ckpt import restore, save
+    from repro_torch.launch import mesh as TM
+    from repro_torch.models import convert
+    cfg = get_arch("internlm2-1.8b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=4)
+    save(str(tmp_path), 1, convert.stack_blocks(params))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = TM.make_debug_mesh((1, 1))
+        rules = TM.make_rules(mesh)
+        pspecs = TT.param_pspecs(cfg, rules)
+        like = convert.stack_blocks(TT.param_shapes(cfg, torch.float32))
+        got = convert.unstack_blocks(
+            restore(str(tmp_path), 1, like=like, mesh=mesh, pspecs=pspecs),
+            params)
+        layered = convert.unstack_specs(pspecs, params)
+        for (leaf, spec), (want, _) in zip(
+                convert.leaves_with_specs(got, layered),
+                convert.leaves_with_specs(params, layered)):
+            assert isinstance(leaf, DTensor)
+            assert leaf.to_local().device.type == "cuda"
+            assert tuple(leaf.placements) == TM.placements(spec, mesh)
+            assert torch.equal(leaf.to_local(), want)
+        x = torch.randn(2, 8, 16, device=sm90_device)
+        d = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+        y = rules.act(d, rules.batch, None, rules.model)
+        assert tuple(y.placements) == (Shard(0), Shard(2))
+        assert torch.equal(y.full_tensor(), x)
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # the rest of the zoo: MLA, M-RoPE with embeddings, MoE; the card against
 # the host on the same weights

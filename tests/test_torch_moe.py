@@ -120,11 +120,21 @@ def test_moe_grouped_forward_matches_the_reference():
 
 
 def test_shard_experts_waits_for_the_sharding_rules():
+    """The sharding rules are in (ROADMAP A9.3): ``shard_experts`` sees
+    the expert buffers before and after the expert products, (E, C, D)
+    ungrouped and (G, E, C, D) grouped as in the reference, and an
+    identity constraint leaves the outputs bit for bit."""
     cfg, tcfg = _cfgs()
     _, tp = _layer(cfg, tcfg)
-    with pytest.raises(NotImplementedError, match="A9.3"):
-        TL.moe_forward(tp, _x(cfg, (1, 4))[1], tcfg,
-                       shard_experts=lambda e: e)
+    x = _x(cfg, (4, 32))[1]
+    for groups, shape in ((1, (4, 80, cfg.d_model)),          # cap 80
+                          (4, (4, 4, 24, cfg.d_model))):      # cap 24
+        seen = []
+        y, _ = TL.moe_forward(tp, x, tcfg, groups=groups,
+                              shard_experts=lambda e: seen.append(
+                                  tuple(e.shape)) or e)
+        assert seen == [shape] * 2, (groups, seen)
+        assert torch.equal(y, TL.moe_forward(tp, x, tcfg, groups=groups)[0])
 
 
 def test_router_is_fp32_whatever_the_dtype():
