@@ -46,6 +46,14 @@ mesh's rules against ``rules=None``, qwen3-moe (1 layer, full width) with
 on the two production meshes (a fake process group).  Neither launches a
 hand-written kernel (the reference's pipeline runs ``impl="dense"``).
 
+Then the dry-run (``launch.dryrun``): internlm2-1.8b × train_4k and ×
+decode_32k on both production meshes and hymba-1.5b × long_500k lowered
+on the host (meta DTensors over fake process groups, counted by
+``roofline.counter``), and internlm2-1.8b's dry-run train step (bf16,
+4 × 4,096 tokens) and a decode step over a 32,768-slot bf16 cache counted
+on the card and on meta tensors, their device time against the counted
+bound.  No hand-written kernel runs there (dense attention).
+
 Then the rest of the zoo, each phase with the flash launch count set to 0
 just before it and read just after: minicpm3-4b (MLA) at full width and
 depth served in 2 waves of 4 requests (1,024 and 2,048 tokens, no flash
@@ -223,6 +231,20 @@ SHARD_MOE_BATCH = 4
 SHARD_MOE_SEQ = 128
 SHARD_MOE_GROUPS = 4
 SHARD_MOE_TOL = 1e-4          # of the logits' largest magnitude
+DRYRUN_CELLS = [("internlm2-1.8b", "train_4k", False),
+                ("internlm2-1.8b", "train_4k", True),
+                ("internlm2-1.8b", "decode_32k", False),
+                ("internlm2-1.8b", "decode_32k", True),
+                ("hymba-1.5b", "long_500k", False)]
+# one reduced config of each family through train, prefill and decode on
+# a (data 2, model 4) fake mesh: this machine's torch has its own DTensor
+DRYRUN_FAMILIES = ["internlm2-1.8b", "minicpm3-4b", "hymba-1.5b",
+                   "mamba2-130m", "qwen3-moe-235b-a22b", "qwen2-vl-2b",
+                   "musicgen-medium"]
+DRYRUN_SMALL = [("train_s", 32, 4, "train"), ("prefill_s", 64, 2, "prefill"),
+                ("decode_s", 64, 4, "decode")]
+DRYRUN_TRAIN_BATCH = 4        # train_4k's 256 sequences of 4,096 cut to 4
+DRYRUN_DECODE_BATCH = 2       # decode_32k's 128 sequences cut to 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -1864,6 +1886,196 @@ def shard_rules(torch, T, device):
          per_rank=per_rank)
 
 
+def dryrun(torch, T, TS, device):
+    """The dry-run and its counted bound against the card.  On the host:
+    ``launch.dryrun.lower`` for ``DRYRUN_FAMILIES`` × ``DRYRUN_SMALL``
+    (reduced configs on a (2, 4) fake mesh), then
+    ``launch.dryrun.lower_cell`` for internlm2-1.8b × train_4k and ×
+    decode_32k on both production meshes and hymba-1.5b × long_500k on
+    16×16 (fake process groups, meta DTensors).  On the card:
+    internlm2-1.8b's dry-run train step (``arch_train_config``: bf16
+    parameters, fp32 AdamW moments, remat, dense attention) at full width
+    and depth on 4 × 4,096 tokens (train_4k's batch cut 256 → 4), and one
+    decode step at position 32,767 of a 32,768-slot bf16 cache for 2
+    sequences (decode_32k's batch cut 128 → 2).  Each is counted once on
+    the card and once on meta tensors (dot flops and bytes must be
+    equal), then its device time is taken with ``profile_step`` after a
+    warm-up call; the counted terms use ``Roofline``'s H100 datasheet
+    peaks at bf16.  The host's DTensor count of each cell (one rank's
+    products × ranks) must equal the card's plain count of the cut batch
+    times the cut (256/4 and 128/2): the sharded step does the plain
+    step's products, split over the ranks without redundancy."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import SHAPES, ShapeConfig, get_arch
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as TM
+    from repro_torch.roofline import analysis as R
+    from repro_torch.roofline.counter import count
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    t = time.perf_counter()
+    families = 0
+    for arch in DRYRUN_FAMILIES:
+        for shape in DRYRUN_SMALL:
+            dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                    world_size=8)
+            try:
+                mesh = TM.make_debug_mesh((2, 4), ("data", "model"),
+                                          device="cpu")
+                row = D.lower(get_arch(arch).reduced(), ShapeConfig(*shape),
+                              mesh).row()
+            finally:
+                dist.destroy_process_group()
+            if not row["dot_flops"] > 0:
+                raise AssertionError(f"{arch} × {shape[0]}: no products")
+            families += 1
+    families_s = time.perf_counter() - t
+    cells = []
+    t_all = time.perf_counter()
+    for arch, shape, multi in DRYRUN_CELLS:
+        t = time.perf_counter()
+        row = D.lower_cell(arch, shape, multi_pod=multi,
+                           verbose=False).row()
+        row["seconds"] = time.perf_counter() - t
+        cells.append(row)
+    host_s = time.perf_counter() - t_all
+    if dist.is_initialized():
+        raise AssertionError("a dry-run cell left its fake group behind")
+    for row in cells:
+        if not all(np.isfinite(row[k]) and row[k] > 0 for k in (
+                "hlo_flops", "dot_flops", "hlo_bytes", "collective_bytes",
+                "per_device_hbm")):
+            raise AssertionError(f"dry-run row not finite and positive: "
+                                 f"{row}")
+    # the module's products are the same work on either mesh (its ranks
+    # split the batch evenly): one rank's count × ranks agrees
+    for arch, shape in {(a, s) for a, s, _ in DRYRUN_CELLS}:
+        dots = [r["dot_flops"] for r in cells
+                if (r["arch"], r["shape"]) == (arch, shape)]
+        if len(dots) == 2 and abs(dots[0] - dots[1]) > 1e-6 * dots[0]:
+            raise AssertionError(f"{arch} × {shape}: module dot flops "
+                                 f"differ between the meshes: {dots}")
+
+    cfg = get_arch(TRAIN_ARCH)
+    rng = np.random.default_rng(SEED + 11)
+    tc = D.arch_train_config(cfg)
+    params, state = TS.init_train_state(cfg, tc, device=device,
+                                        dtype=torch.bfloat16, seed=SEED)
+    seq = SHAPES["train_4k"].seq_len
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DRYRUN_TRAIN_BATCH, seq + 1), dtype=np.int32))
+    batch = {"tokens": tokens[:, :-1].to(device),
+             "labels": tokens[:, 1:].to(device)}
+    step = TS.make_train_step(cfg, tc)
+    out = step(params, state, batch)                     # warm-up
+    torch.cuda.synchronize()
+    del out
+    card = count(lambda: step(params, state, batch))[1]
+    mparams, mstate = TS.train_state_shapes(cfg, tc, torch.bfloat16)
+    mbatch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in batch.items()}
+    meta = count(lambda: step(mparams, mstate, mbatch))[1]
+    dev_ms, launches, out = profile_step(
+        torch, lambda: step(params, state, batch))
+    if not all(torch.isfinite(v).all() for v in
+               pytree.tree_leaves(out[2])):
+        raise AssertionError("the dry-run train step's metrics are not "
+                             "finite")
+    del out, params, state, batch
+    torch.cuda.empty_cache()
+    cut = ShapeConfig("train_4k_b4", seq, DRYRUN_TRAIN_BATCH, "train")
+    train = _dryrun_row(R, cfg, cut, card, meta, dev_ms, launches)
+    _dryrun_scaled(cells, "train_4k", card, SHAPES["train_4k"].global_batch
+                   // DRYRUN_TRAIN_BATCH)
+    train["train_flops_hand"] = train_flops(cfg, DRYRUN_TRAIN_BATCH, seq)
+    train["dot_flops_over_hand"] = card.dot_flops / train[
+        "train_flops_hand"]
+
+    dcfg_shape = SHAPES["decode_32k"]
+    with torch.no_grad():
+        params = T.init_params(cfg, device=device, dtype=torch.bfloat16,
+                               seed=SEED)
+        cache = T.init_cache(cfg, DRYRUN_DECODE_BATCH, dcfg_shape.seq_len,
+                             torch.bfloat16, device=device)
+        tok = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (DRYRUN_DECODE_BATCH, 1), dtype=np.int32))
+        # the dry-run's position: the cache's last slot, all of it attended
+        inputs = {"tokens": tok.to(device), "length": dcfg_shape.seq_len - 1}
+        dec = lambda p, c, i: T.decode_step(p, cfg, c, i)[0]
+        dec(params, cache, inputs)                            # warm-up
+        torch.cuda.synchronize()
+        card = count(lambda: dec(params, cache, inputs))[1]
+        mcache = T.init_cache(cfg, DRYRUN_DECODE_BATCH, dcfg_shape.seq_len,
+                              torch.bfloat16, device="meta")
+        minputs = {"tokens": torch.empty(tok.shape, dtype=tok.dtype,
+                                         device="meta"),
+                   "length": inputs["length"]}
+        mparams = T.param_shapes(cfg)
+        meta = count(lambda: dec(mparams, mcache, minputs))[1]
+        dev_ms, launches, logits = profile_step(
+            torch, lambda: dec(params, cache, inputs))
+        if not torch.isfinite(logits).all():
+            raise AssertionError("the dry-run decode step's logits are "
+                                 "not finite")
+        cache_gb = sum(v.numel() * v.element_size()
+                       for v in cache.values()) / 1e9
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    cut = ShapeConfig("decode_32k_b2", dcfg_shape.seq_len,
+                      DRYRUN_DECODE_BATCH, "decode")
+    decode = _dryrun_row(R, cfg, cut, card, meta, dev_ms, launches)
+    _dryrun_scaled(cells, "decode_32k", card,
+                   dcfg_shape.global_batch // DRYRUN_DECODE_BATCH)
+    decode["cache_gb"] = cache_gb
+    emit("dryrun", families=families, families_s=families_s,
+         host_cells=cells, host_s=host_s, train=train,
+         decode=decode, hardware=dataclasses.asdict(R.H100))
+
+
+def _dryrun_scaled(cells, shape, card, cut):
+    """Every host row of ``TRAIN_ARCH`` × ``shape`` (either mesh): its
+    module dot flops equal the card's count × ``cut``, exactly."""
+    rows = [r for r in cells if (r["arch"], r["shape"]) == (TRAIN_ARCH,
+                                                            shape)]
+    if not rows:
+        raise AssertionError(f"no host row of {TRAIN_ARCH} × {shape}")
+    for r in rows:
+        if r["dot_flops"] != card.dot_flops * cut:
+            raise AssertionError(
+                f"{shape} on {r['mesh']}: module dot flops {r['dot_flops']}"
+                f" != the card's {card.dot_flops} × {cut}")
+
+
+def _dryrun_row(R, cfg, shape, card, meta, dev_ms, launches):
+    """The counted step against its measured device time; raises where
+    the card's and meta's counts disagree."""
+    if card.dot_flops != meta.dot_flops:
+        raise AssertionError(f"{shape.name}: dot flops on the card "
+                             f"{card.dot_flops} != on meta {meta.dot_flops}")
+    if card.bytes != meta.bytes:
+        raise AssertionError(f"{shape.name}: bytes on the card {card.bytes}"
+                             f" != on meta {meta.bytes}")
+    roof = R.Roofline(arch=cfg.name, shape=shape.name, mesh="1", chips=1,
+                      hlo_flops=card.flops, hlo_bytes=card.bytes,
+                      collective_bytes=0.0,
+                      model_flops=R.model_flops(cfg, shape),
+                      dot_flops=card.dot_flops, dtype="bfloat16")
+    bound_ms = 1e3 * max(roof.t_compute, roof.t_memory)
+    return {"shape": shape.name, "dot_flops_card": card.dot_flops,
+            "dot_flops_meta": meta.dot_flops, "flops": card.flops,
+            "bytes_card": card.bytes, "bytes_meta": meta.bytes,
+            "model_flops": roof.model_flops,
+            "dot_flops_over_model": card.dot_flops / roof.model_flops,
+            "t_compute_ms": 1e3 * roof.t_compute,
+            "t_memory_ms": 1e3 * roof.t_memory,
+            "bottleneck": roof.bottleneck, "bound_ms": bound_ms,
+            "device_ms": dev_ms, "launches": launches,
+            "device_over_bound": dev_ms / bound_ms}
+
+
 # --- the rest of the paper's framework: sharded DES, examples, B5, A6 -----
 
 
@@ -2559,6 +2771,9 @@ def main() -> int:
     # one-rank NCCL mesh
     gpipe(torch, TS, T, device)
     shard_rules(torch, T, device)
+    # the dry-run's cells on the host, and its counted bound against the
+    # card's train and decode steps
+    dryrun(torch, T, TS, device)
 
     # the rest of the zoo: MLA, M-RoPE with patch embeddings, MoE (the
     # flash kernel serves the GQA prefills; MLA's attention is dense)

@@ -10,8 +10,8 @@ measurement, so every consumer stays deterministic.
 
 1. **Counted flops.**  The reference compiles each workload's JAX kernels
    and costs the HLO.  The port counts the plain PyTorch version of each
-   model's per-message work on the host instead: matrix products through
-   :class:`torch.utils.flop_counter.FlopCounterMode` (2·M·N·K), every
+   model's per-message work on the host instead, with the port's counter
+   (:mod:`repro_torch.roofline.counter`): matrix products at 2·M·N·K, every
    other op that computes a floating output at one flop per output
    element (XLA's HLO cost does the same for elementwise ops; copies,
    type conversions, views and new buffers count none), and bytes as
@@ -113,46 +113,13 @@ def save_calibration(costs: Mapping[str, ModelCost], path: str,
 
 
 def _count(fn, *args):
-    """(flops, bytes) of ``fn(*args)`` as run: products from
-    ``FlopCounterMode``, one flop per floating output element of every
-    other computing op, bytes as inputs read plus outputs written."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_flatten
-    from torch.utils.flop_counter import FlopCounterMode, flop_registry
-
-    aten = torch.ops.aten
-    # data movement and new buffers: bytes, no flops (HLO's convert, copy,
-    # concatenate, gather and broadcast count none either)
-    moves = {aten._to_copy, aten.copy_, aten.clone, aten.cat, aten.stack,
-             aten.gather, aten.index_select, aten.index, aten.repeat,
-             aten.fill_, aten.zero_, aten.lift_fresh,
-             aten.constant_pad_nd, aten.where}
-
-    class Counter(TorchDispatchMode):
-        flops = 0
-        nbytes = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func.is_view:
-                return out
-            ins = [t for t in tree_flatten((args, kwargs))[0]
-                   if isinstance(t, torch.Tensor)]
-            outs = [t for t in tree_flatten(out)[0]
-                    if isinstance(t, torch.Tensor)]
-            self.nbytes += sum(t.numel() * t.element_size()
-                               for t in ins + outs)
-            packet = func.overloadpacket
-            if ins and packet not in flop_registry and packet not in moves:
-                self.flops += sum(t.numel() for t in outs
-                                  if t.is_floating_point())
-            return out
-
-    products = FlopCounterMode(display=False)
-    with products, Counter() as counter:
-        fn(*args)
-    return products.get_total_flops() + counter.flops, counter.nbytes
+    """(flops, bytes) of ``fn(*args)`` as run, by the port's one counter
+    (:class:`repro_torch.roofline.counter.Counter`): products at
+    2·M·N·K, one flop per floating output element of every other
+    computing op, bytes as inputs read plus outputs written."""
+    from repro_torch.roofline.counter import count
+    _, c = count(fn, *args)
+    return c.flops, c.bytes
 
 
 def _message(n_points: int, n_features: int, seed: int = 0):

@@ -31,6 +31,7 @@ reference's ``mla_forward`` does, so its ``"kernel"`` is dense too.
 from __future__ import annotations
 
 import math
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +63,269 @@ def _init(generator, shape, scale, dtype, device):
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+# ---------------------------------------------------------------------------
+# DTensor support: every helper below is the identity (or the plain op) on
+# a plain tensor; DTensor's module is imported only once a DTensor exists
+# ---------------------------------------------------------------------------
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``DTensor``.  Where DTensor's module was never
+    imported no DTensor exists, so plain callers never pay its import."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def from_local(local, mesh, placements, shape):
+    """A ``DTensor`` of global ``shape`` (laid out contiguously) over each
+    rank's ``local`` shard, unchecked: the shape is given because an
+    uneven split would otherwise be taken for an even one."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def dtensor_scope(*trees):
+    """The scope a model call runs in: with a ``DTensor`` among ``trees``'
+    leaves, ``implicit_replication``, under which every plain tensor the
+    model makes itself (RoPE tables, masks, ``arange``s, zero buffers;
+    the same on every rank) joins a ``DTensor`` op as a replicated
+    ``DTensor`` on that op's mesh; otherwise nothing."""
+    import contextlib
+    from torch.utils._pytree import tree_leaves
+    if not any(is_dtensor(t) for t in tree_leaves(trees)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor import DTensor
+    if not DTensor._op_dispatcher._allow_implicit_replication:
+        # not re-entrant: its exit turns the replication off, so an inner
+        # scope would end the outer one's
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _cuts(t, dim: int, size: int) -> bool:
+    """Whether a ``DTensor``'s shards of dimension ``dim`` cut it where a
+    split of that dimension into (``size``, rest) would not: DTensor
+    does not unflatten such an uneven split, where XLA pads.  False for a
+    plain tensor."""
+    if not is_dtensor(t):
+        return False
+    from torch.distributed.tensor import Shard
+    dim, n = dim % t.ndim, 1
+    for width, pl in zip(t.device_mesh.shape, t.placements):
+        if isinstance(pl, Shard) and pl.dim % t.ndim == dim:
+            n *= width
+    return size % n != 0
+
+
+def _placed(t, fn):
+    """``t`` redistributed to ``fn(mesh dim's placement) -> placement``
+    on each mesh dim (nothing moves where every placement stays)."""
+    new = [fn(pl) for pl in t.placements]
+    return t if new == list(t.placements) else t.redistribute(
+        t.device_mesh, new)
+
+
+def reduced(t):
+    """A ``DTensor`` with its pending sums (``Partial`` placements, such
+    as a lookup in a vocab-sharded table leaves) reduced to
+    ``Replicate``; a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return _placed(t, lambda pl: Replicate() if pl.is_partial() else pl)
+
+
+def embedding(tok, table):
+    """``F.embedding(tok, table)``.  On a ``DTensor`` table it is the
+    vocab-parallel lookup (Megatron's): the table's model-dim shards
+    (FSDP) are gathered, each rank looks up the ids in its vocab slice
+    under ``local_map`` (zero rows elsewhere) and the rows are summed
+    across the vocab shards, a ``Partial`` the caller's constraint
+    reduces.  DTensor's own lookup leaves a masked partial whose
+    backward it cannot redistribute."""
+    if not is_dtensor(table):
+        return F.embedding(tok, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    table = _placed(table, lambda pl: pl if pl == Shard(0) else Replicate())
+    tok = _placed(tok, lambda pl: pl if pl == Shard(0) else Replicate())
+    out = [Shard(0) if t == Shard(0) else Partial() if w == Shard(0)
+           else Replicate() for t, w in zip(tok.placements, table.placements)]
+    grad = [Partial() if t == Shard(0) else w
+            for t, w in zip(tok.placements, table.placements)]
+    _, (lo, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+
+    def lookup(ids, rows):
+        ids = ids - lo
+        keep = (ids >= 0) & (ids < rows.shape[0])
+        y = F.embedding(torch.where(keep, ids, 0), rows)
+        return y * keep[..., None].to(y.dtype)
+
+    return local_map(lookup, out_placements=out,
+                     in_placements=(list(tok.placements),
+                                    list(table.placements)),
+                     in_grad_placements=(list(tok.placements), grad),
+                     device_mesh=mesh)(tok, table)
+
+
+def _gathered(t, dim: int):
+    """A ``DTensor`` replicated on the mesh dims that shard ``dim``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return _placed(t, lambda pl: Replicate() if isinstance(pl, Shard)
+                   and pl.dim % t.ndim == dim % t.ndim else pl)
+
+
+def write_slot(cache, idx: int, value) -> None:
+    """``cache[:, idx] = value`` in ``cache``'s type, in place: (B, S,
+    ...) caches, (B, ...) values.  A ``DTensor`` cache whose sequence
+    dim is sharded (context-parallel decode) is written by the rank that
+    holds slot ``idx``, in its own shard: DTensor's ``setitem`` would
+    gather the whole cache first."""
+    if not is_dtensor(cache):
+        cache[:, idx] = value.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+
+    def slot_placement(pl):            # the cache's, without its dim 1
+        if not isinstance(pl, Shard) or pl.dim == 1:
+            return Replicate()
+        return Shard(pl.dim - 1) if pl.dim > 1 else pl
+
+    value = value.redistribute(mesh, [slot_placement(pl)
+                                      for pl in cache.placements])
+    local = cache.to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    if offset[1] <= idx < offset[1] + shape[1]:
+        local[:, idx - offset[1]] = value.to_local().to(cache.dtype)
+
+
+def heads(t, *shape, split: bool = True):
+    """``t.reshape(*shape)``, the last dim split into (heads, width).  A
+    ``DTensor`` whose shards would cut a head (40 heads, or 8 kv heads,
+    over a 16-wide model axis) is gathered on the mesh dims that shard
+    its last dim, reshaped, and (with ``split``) split there again on
+    whole heads, the first ranks taking the ceiling as XLA's padded
+    split does (12 heads over 16 ranks: one head each on ranks 0-11).
+    A plain tensor is reshaped as it is."""
+    if not _cuts(t, -1, shape[-2]):
+        return t.reshape(*shape)
+    from torch.distributed.tensor import Shard
+    last = t.ndim - 1
+    cut = [isinstance(pl, Shard) and pl.dim % t.ndim == last
+           for pl in t.placements]
+    t = _gathered(t, last).reshape(*shape)
+    if not split:
+        return t
+    return t.redistribute(t.device_mesh, [
+        Shard(len(shape) - 2) if c else pl
+        for c, pl in zip(cut, t.placements)])
+
+
+def merge_heads(t, *shape):
+    """``t.reshape(*shape)``, the last two (heads, width) dims merged:
+    the inverse of :func:`heads`.  A ``DTensor`` split unevenly on its
+    heads is gathered there first; then each rank merges its own shard
+    and the result keeps ``t``'s placements (a head split becomes the
+    same split of the merged dim), laid out contiguously as the plain
+    reshape's is.  By hand, as ``local_map`` does: DTensor's own view
+    would give a size-1 dim an odd stride (a following matmul then takes
+    a bmm, other bits) and cannot unflatten an uneven split of the
+    merged dim in the backward pass."""
+    if not is_dtensor(t):
+        return t.reshape(*shape)
+    if _cuts(t, -2, t.shape[-2]):
+        t = _gathered(t, -2)
+    local = t.to_local()
+    local = local.reshape(*local.shape[:-2], -1).contiguous()
+    return from_local(local, t.device_mesh, t.placements, shape)
+
+
+def _on_rows(fn, batched, shared):
+    """``fn(*batched, *shared)`` on each rank's batch rows, as
+    ``local_map`` would, for regions where DTensor lacks a sharding
+    strategy: the ``batched`` DTensors (batch on dim 0) keep the first
+    one's batch splits and are replicated on the other mesh dims, the
+    ``shared`` ones are replicated and their gradients are pending sums
+    over the batch splits.  ``fn`` returns a tuple of tensors with the
+    batch on dim 0, laid out as the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    lead = batched[0]
+    mesh = lead.device_mesh
+    rows = [pl if pl == Shard(0) else Replicate() for pl in lead.placements]
+    summed = [Partial() if pl == Shard(0) else Replicate() for pl in rows]
+    rep = [Replicate()] * mesh.ndim
+    local = [t.redistribute(mesh, rows).to_local() for t in batched]
+    local += [t.redistribute(mesh, rep).to_local(grad_placements=summed)
+              for t in shared]
+    return tuple(from_local(o.contiguous(), mesh, rows,
+                            (lead.shape[0], *o.shape[1:]))
+                 for o in fn(*local))
+
+
+def codebook_logits(x, head):
+    """``einsum("bsd,kdv->bskv", x, head)``: K codebook heads over (B, S,
+    D) x.  On ``DTensor``s it runs on each rank's shards, as ``local_map``
+    would: x keeps its (batch, sequence) splits, the head its (codebook,
+    vocab) splits on the other mesh dims, the rest is replicated (DTensor's
+    own einsum flattens a sharded dim, which some torch versions
+    refuse)."""
+    if not is_dtensor(x):
+        return torch.einsum("bsd,kdv->bskv", x, head)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    xp, hp, out, xg, hg = [], [], [], [], []
+    for a, b in zip(x.placements, head.placements):
+        if a in (Shard(0), Shard(1)):      # the head's sums pend here
+            xp.append(a), hp.append(Replicate()), out.append(a)
+            xg.append(a), hg.append(Partial())
+        elif b in (Shard(0), Shard(2)):    # so do x's
+            xp.append(Replicate()), hp.append(b)
+            out.append(Shard(b.dim + 1)), xg.append(Partial()), hg.append(b)
+        else:
+            for lst in (xp, hp, out, xg, hg):
+                lst.append(Replicate())
+    mesh = x.device_mesh
+    x, head = x.redistribute(mesh, xp), head.redistribute(mesh, hp)
+    y = torch.einsum("bsd,kdv->bskv", x.to_local(grad_placements=xg),
+                     head.to_local(grad_placements=hg))
+    return from_local(y.contiguous(), mesh, out,
+                      (*x.shape[:2], head.shape[0], head.shape[2]))
+
+
+def _attend(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)``, an attention core over (B, S, H, D) q and
+    (B, S, Hkv, D) k/v.  On ``DTensor``s it runs on each rank's (batch,
+    head) shards, as ``local_map`` would: q keeps its batch and head
+    splits, k/v take the same ones (where q's head shards do not line up
+    with whole kv groups, k/v are first repeated to q's heads), and the
+    output is laid out as q.  Plain tensors go straight to ``fn``."""
+    if not is_dtensor(q):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    q = _placed(q, lambda pl: pl if isinstance(pl, Shard)
+                and pl.dim in (0, 2) else Replicate())
+    places = list(q.placements)
+    n = math.prod(width for width, pl in zip(q.device_mesh.shape, places)
+                  if pl == Shard(2))
+    if k.shape[2] != q.shape[2] and (k.shape[2] % n or q.shape[2] % n):
+        rep = q.shape[2] // k.shape[2]
+        k, v = (_repeat_kv(_gathered(t, 2), rep) for t in (k, v))
+    k, v = (t.redistribute(t.device_mesh, places) for t in (k, v))
+    o = fn(q.to_local(), k.to_local(), v.to_local(), **kw).contiguous()
+    return from_local(o, q.device_mesh, places, (*q.shape[:3], v.shape[3]))
 
 
 def softplus(x):
@@ -180,6 +444,8 @@ def attention_decode(q, k_cache, v_cache, valid_len: int):
     b, _, h, d = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = h // hkv
+    if _cuts(q, 2, hkv):
+        q = _gathered(q, 2)
     qg = q.reshape(b, 1, hkv, rep, d)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k_cache.float())
     scores = scores / math.sqrt(d)
@@ -210,22 +476,24 @@ def gqa_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
                 window=None, chunk=1024):
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    # k/v stay gathered where their heads are cut: attention repeats
+    # them to q's heads first
+    q = heads(x @ p["wq"], b, s, h, hd)
+    k = heads(x @ p["wk"], b, s, hkv, hd, split=False)
+    v = heads(x @ p["wv"], b, s, hkv, hd, split=False)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if impl == "dense":
-        o = attention_dense(q, k, v, causal=True, window=window)
+        o = _attend(attention_dense, q, k, v, causal=True, window=window)
     elif impl == "chunked":
-        o = attention_chunked(q, k, v, causal=True, window=window,
-                              chunk_q=min(chunk, s), chunk_k=min(chunk, s))
+        o = _attend(attention_chunked, q, k, v, causal=True, window=window,
+                    chunk_q=min(chunk, s), chunk_k=min(chunk, s))
     elif impl == "kernel":
         o = kops.flash_attention(q, k, v, causal=True, window=window)
     else:
         raise ValueError(impl)
-    return o.reshape(b, s, h * hd) @ p["wo"], (k, v)
+    return merge_heads(o, b, s, h * hd) @ p["wo"], (k, v)
 
 
 def gqa_decode(p, x, cache_k, cache_v, write_idx: int, valid_len: int, cos,
@@ -235,16 +503,16 @@ def gqa_decode(p, x, cache_k, cache_v, write_idx: int, valid_len: int, cos,
     attends over ``valid_len`` entries.  Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, 1, h, hd)
-    k = (x @ p["wk"]).reshape(b, 1, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, 1, hkv, hd)
+    q = heads(x @ p["wq"], b, 1, h, hd)
+    k = heads(x @ p["wk"], b, 1, hkv, hd, split=False)
+    v = heads(x @ p["wv"], b, 1, hkv, hd, split=False)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    cache_k[:, write_idx] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, write_idx] = v[:, 0].to(cache_v.dtype)
+    write_slot(cache_k, write_idx, k[:, 0])
+    write_slot(cache_v, write_idx, v[:, 0])
     o = attention_decode(q, cache_k, cache_v, valid_len)
-    o = o.reshape(b, 1, h * hd).to(torch.promote_types(o.dtype,
+    o = merge_heads(o, b, 1, h * hd).to(torch.promote_types(o.dtype,
                                                         p["wo"].dtype))
     return o @ p["wo"], cache_k, cache_v
 
@@ -280,7 +548,7 @@ def _mla_qkv(p, x, cos, sin, cfg: ArchConfig):
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
     cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q = heads(cq @ p["wq_b"], b, s, h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     c_kv, k_rope = torch.split(x @ p["wkv_a"],
                                [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
@@ -305,17 +573,18 @@ def mla_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
     if impl not in IMPLS:
         raise ValueError(impl)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cos, sin, cfg)
-    kvx = (c_kv @ p["wkv_b"]).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
+    kvx = heads(c_kv @ p["wkv_b"], b, s, h, m.qk_nope_dim + m.v_head_dim)
     k_nope, v = torch.split(kvx, [m.qk_nope_dim, m.v_head_dim], dim=-1)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, m.qk_rope_dim)], -1)
     if impl == "chunked":
-        o = attention_chunked(q, k, v, causal=True, chunk_q=min(chunk, s),
-                              chunk_k=min(chunk, s))
+        o = _attend(attention_chunked, q, k, v, causal=True,
+                    chunk_q=min(chunk, s), chunk_k=min(chunk, s))
     else:
-        o = attention_dense(q, k, v, causal=True)
-    return o.reshape(b, s, h * m.v_head_dim) @ p["wo"], (c_kv, k_rope)
+        o = _attend(attention_dense, q, k, v, causal=True)
+    return (merge_heads(o, b, s, h * m.v_head_dim) @ p["wo"],
+            (c_kv, k_rope))
 
 
 def mla_decode(p, x, cache_ckv, cache_krope, length: int, cos, sin,
@@ -333,9 +602,9 @@ def mla_decode(p, x, cache_ckv, cache_krope, length: int, cos, sin,
     m, h = cfg.mla, cfg.n_heads
     b = x.shape[0]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cos, sin, cfg)
-    cache_ckv[:, length] = c_kv[:, 0].to(cache_ckv.dtype)
-    cache_krope[:, length] = k_rope[:, 0].to(cache_krope.dtype)
-    w_kv = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
+    write_slot(cache_ckv, length, c_kv[:, 0])
+    write_slot(cache_krope, length, k_rope[:, 0])
+    w_kv = heads(p["wkv_b"], m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
     w_uk, w_uv = w_kv[..., :m.qk_nope_dim], w_kv[..., m.qk_nope_dim:]
     # absorb: q_lat[b,h,r] = sum_n q_nope[b,h,n] w_uk[r,h,n]
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
@@ -351,7 +620,7 @@ def mla_decode(p, x, cache_ckv, cache_krope, length: int, cos, sin,
                          cache_ckv)
     dt = torch.promote_types(o_lat.dtype, w_uv.dtype)
     o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(dt), w_uv.to(dt))
-    o = o.reshape(b, 1, h * m.v_head_dim)
+    o = merge_heads(o, b, 1, h * m.v_head_dim)
     dt = torch.promote_types(o.dtype, p["wo"].dtype)
     return o.to(dt) @ p["wo"].to(dt), cache_ckv, cache_krope
 
@@ -475,21 +744,19 @@ def _constrain(shard_experts, buf):
     return shard_experts(buf)
 
 
-def _moe_forward_grouped(p, x, cfg: ArchConfig, shard_experts, groups: int):
-    """Group-local capacity dispatch (see :func:`moe_forward`); one group
-    is the reference's ungrouped path.
-
-    Every (token, slot) past its expert's capacity is written to the one
-    spare row ``n_experts · cap`` of its group's buffer, which is thrown
-    away (``index_copy_`` with that duplicate index is nondeterministic in
-    that row only), and gathers the zero row there.  The combine sums
-    ``gate_j · out[slot_j]`` in fp32 in j order and casts once."""
+def _moe_dispatch(router, x, cfg: ArchConfig, groups: int):
+    """Route ``groups`` groups of x's tokens and scatter them into one
+    (G, E, C, D) capacity buffer.  Returns (buffer, flat slot of each
+    (token, j) in a flat (G·(E·C + 1), D) buffer, gates, and the router's
+    statistics: the mean of ``probs`` over the tokens, the share of
+    first choices per expert, the mean squared log-sum-exp and the share
+    of kept slots)."""
     m = cfg.moe
     b, s, d = x.shape
     g, e, k = groups, m.n_experts, m.top_k
     tg = b * s // g
     xf = x.reshape(g, tg, d)
-    logits, probs, gate, ids = moe_route(p, xf, k)           # (g,tg,k)
+    logits, probs, gate, ids = moe_route({"router": router}, xf, k)
 
     cap = moe_capacity(cfg, tg)
     pos = _dispatch_positions(ids.reshape(g, tg * k), e).reshape(g, tg, k)
@@ -502,29 +769,117 @@ def _moe_forward_grouped(p, x, cfg: ArchConfig, shard_experts, groups: int):
     src = xf.reshape(g * tg, d)
     for j in range(k):                                       # k small
         buf.index_copy_(0, flat[:, :, j].reshape(-1), src)
-    eb = _constrain(shard_experts,
-                    buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d))
+    eb = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d)
+    stats = (probs.mean((0, 1)),                             # (E,)
+             F.one_hot(ids[..., 0], e).float().mean((0, 1)),
+             torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+             keep.float().mean())
+    return eb, flat, gate, stats
+
+
+def _moe_combine(out, flat, gate, shape, dtype):
+    """The combine: ``gate_j · out[slot_j]`` summed in fp32 in j order,
+    cast once, each dropped slot gathering the zero spare row."""
+    g, e, cap, d = out.shape
+    out_flat = torch.cat([out.reshape(g, e * cap, d),
+                          torch.zeros((g, 1, d), dtype=out.dtype,
+                                      device=out.device)], 1).reshape(-1, d)
+    y = torch.zeros((g, flat.shape[1], d), dtype=torch.float32,
+                    device=out.device)
+    for j in range(flat.shape[2]):
+        y = y + gate[:, :, j:j + 1] * out_flat[flat[:, :, j]].float()
+    return y.to(dtype).reshape(shape)
+
+
+def _moe_local(x, router, groups: int):
+    """The dispatch and combine of a ``DTensor`` x under ``local_map``:
+    each rank takes the groups of its own batch rows (GShard's
+    group-local dispatch, the reference's ``rules.moe_groups``), so the
+    routing, the scatter and the gather stay on the rank.  Where the
+    groups do not split over the batch shards (one group for a decode
+    step's few tokens), x's batch is gathered and every rank routes all
+    of it.  Returns (dispatch(cfg) -> DTensors, combine(out, ...) ->
+    y), both run by the caller."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    n = 1
+    for width, pl in zip(mesh.shape, x.placements):
+        n *= width if pl == Shard(0) else 1
+    split = groups % n == 0
+    x = _placed(x, lambda pl: pl if split and pl == Shard(0)
+                else Replicate())
+    rows = list(x.placements)                      # batch/group dim 0
+    rep = [Replicate()] * mesh.ndim
+    # each rank's router gradient sums its own rows only
+    summed = [Partial() if pl == Shard(0) else Replicate() for pl in rows]
+    router = _placed(router, lambda pl: Replicate())
+    local_groups = groups // n if split else groups
+
+    def dispatch(cfg):
+        # each rank's statistics are one row of an (n, ...) stack whose
+        # mean is taken as a DTensor op, so that their gradient reaches
+        # every rank's share (a Partial("avg") output's would not be
+        # scaled by 1/n)
+        def local(xl, r):
+            eb, flat, gate, stats = _moe_dispatch(r, xl, cfg, local_groups)
+            return (eb, flat, gate, *(st[None] for st in stats))
+
+        eb, flat, gate, *stats = local_map(
+            local, out_placements=(rows,) * 7, in_placements=(rows, rep),
+            in_grad_placements=(rows, summed), device_mesh=mesh)(x, router)
+        return eb, flat, gate, tuple(st.mean(0) for st in stats)
+
+    def combine(out, flat, gate):
+        out = _placed(out, lambda pl: pl if pl == Shard(0)
+                      else Replicate())
+        out = out.redistribute(mesh, rows)
+        return local_map(
+            lambda o, f, g_: _moe_combine(o, f, g_, (
+                x.to_local().shape), x.dtype),
+            out_placements=rows, in_placements=(rows, rows, rows),
+            device_mesh=mesh)(out, flat, gate)
+
+    return dispatch, combine
+
+
+def _moe_forward_grouped(p, x, cfg: ArchConfig, shard_experts, groups: int):
+    """Group-local capacity dispatch (see :func:`moe_forward`); one group
+    is the reference's ungrouped path.
+
+    Every (token, slot) past its expert's capacity is written to the one
+    spare row ``n_experts · cap`` of its group's buffer, which is thrown
+    away (``index_copy_`` with that duplicate index is nondeterministic in
+    that row only), and gathers the zero row there.  The combine sums
+    ``gate_j · out[slot_j]`` in fp32 in j order and casts once.
+
+    On ``DTensor``s the dispatch and the combine run on each rank's own
+    groups under ``local_map`` (:func:`_moe_local`), DTensor having no
+    sharding strategy for the top-k sort, the cumsum and the scatter;
+    the expert products between them run on the experts' model shards as
+    the buffer's constraint lays them out."""
+    m = cfg.moe
+    if is_dtensor(x):
+        dispatch, combine = _moe_local(x, p["router"], groups)
+        eb, flat, gate, stats = dispatch(cfg)
+    else:
+        eb, flat, gate, stats = _moe_dispatch(p["router"], x, cfg, groups)
+    eb = _constrain(shard_experts, eb)
     hg = torch.einsum("gecd,edf->gecf", eb, p["w_gate"])
     hu = torch.einsum("gecd,edf->gecf", eb, p["w_up"])
     out = _constrain(shard_experts, torch.einsum(
         "gecf,efd->gecd", silu(hg) * hu, p["w_down"]))
-    out_flat = torch.cat([out.reshape(g, e * cap, d),
-                          torch.zeros((g, 1, d), dtype=out.dtype,
-                                      device=out.device)], 1).reshape(-1, d)
-
-    y = torch.zeros((g, tg, d), dtype=torch.float32, device=x.device)
-    for j in range(k):
-        y = y + gate[:, :, j:j + 1] * out_flat[flat[:, :, j]].float()
-    y = y.to(x.dtype).reshape(b, s, d)
+    if is_dtensor(x):
+        y = combine(out, flat, gate)
+    else:
+        y = _moe_combine(out, flat, gate, x.shape, x.dtype)
 
     # aux losses: switch load-balance + router z-loss
-    me = probs.mean((0, 1))                                   # (E,)
-    ce = F.one_hot(ids[..., 0], e).float().mean((0, 1))
+    me, ce, z, kept = stats
     aux = {
         "lb_loss": m.router_aux_coef * m.n_experts * torch.sum(me * ce),
-        "z_loss": m.router_z_coef * torch.mean(
-            torch.logsumexp(logits, dim=-1) ** 2),
-        "dropped_frac": 1.0 - keep.float().mean(),
+        "z_loss": m.router_z_coef * z,
+        "dropped_frac": 1.0 - kept,
     }
     if m.dense_residual:
         y = y + ffn_forward(p["dense"], x, cfg.ffn_kind)
@@ -581,7 +936,12 @@ def _ssm_split(p, x, cfg: ArchConfig):
 
 def _causal_conv(xbc, conv_w, conv_b):
     """xbc (B,S,C); depthwise causal conv along S, as a shifted sum of
-    slices (no convolution library, so no TF32)."""
+    slices (no convolution library, so no TF32).  On ``DTensor``s it runs
+    on each rank's batch rows (:func:`_on_rows`): DTensor's ``pad`` fails
+    to plan its redistribution on some torch versions."""
+    if is_dtensor(xbc):
+        return _on_rows(lambda *a: (_causal_conv(*a),), (xbc,),
+                        (conv_w, conv_b))[0]
     k = conv_w.shape[0]
     s = xbc.shape[1]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
@@ -603,9 +963,17 @@ def ssd_chunked(xh, dt, A, B_, C_, D, chunk: int, *, return_state=False):
     chunk's own part, ``y_inter`` and D·x) and rounded to xh's type once:
     xh, B and C are widened before the chunk's part.  The kernel path
     (:func:`repro_torch.kernels.ops.ssd_chunk_scan`) rounds a bf16 y twice,
-    as the reference's Pallas entry point does.
+    as the reference's Pallas entry point does.  ``DTensor``s are scanned
+    on each rank's batch rows (:func:`_on_rows`).
     """
     assert xh.shape[1] % chunk == 0, (xh.shape[1], chunk)
+    if is_dtensor(xh):
+        # on each rank's batch rows: the cumsum's backward (a flip) has
+        # no DTensor strategy on some torch versions
+        out = _on_rows(lambda x_, dt_, b_, c_, a_, d_: ssd_chunked(
+            x_, dt_, a_, b_, c_, d_, chunk, return_state=True),
+            (xh, dt, B_, C_), (A, D))
+        return out if return_state else out[0]
     parts = kssd.chunk_plain(xh.float(), dt, A, B_.float(), C_.float(), D,
                              chunk)
     y, state = kssd.inter_chunk(*parts, C_, chunk)

@@ -34,6 +34,7 @@ codebook or embedding inputs; RoPE, M-RoPE or none).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -87,12 +88,29 @@ class ShardRules:
         spec's placements on its own mesh; a plain tensor, whose one copy
         is the whole value, comes back unchanged (the reference's
         constraint on a one-device mesh is likewise the identity)."""
-        from torch.distributed.tensor import DTensor
-        if not isinstance(x, DTensor):
+        if not L.is_dtensor(x):
             return x
         from repro_torch.launch.mesh import placements
-        return x.redistribute(x.device_mesh,
-                              placements(P(*spec), x.device_mesh))
+        return _Constrain.apply(x, placements(P(*spec), x.device_mesh))
+
+
+class _Constrain(torch.autograd.Function):
+    """A ``DTensor`` redistributed to ``placements``, its gradient laid
+    out the same way: the reference's sharding constraint, whose
+    transpose constrains the cotangent to the same spec.  DTensor's own
+    ``redistribute`` would hand a pending sum's gradient back as a
+    pending sum, and the products upstream of it could then take
+    gathered weights (DTensor's cost model counts bytes moved, not the
+    product's work)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
 
 
 NO_RULES = None
@@ -279,11 +297,11 @@ def _embed_inputs(params, cfg: ArchConfig, inputs):
     # fixed order, where indexing's (index_put_ with accumulate) does not
     tok = inputs["tokens"]
     if cfg.n_codebooks == 1:
-        return F.embedding(tok, params["embed"])
+        return L.embedding(tok, params["embed"])
     # musicgen: (B,S,K) codebook ids, summed embeddings
-    out = F.embedding(tok[..., 0], params["embed"][0])
+    out = L.embedding(tok[..., 0], params["embed"][0])
     for k in range(1, cfg.n_codebooks):
-        out = out + F.embedding(tok[..., k], params["embed"][k])
+        out = out + L.embedding(tok[..., k], params["embed"][k])
     return out
 
 
@@ -293,7 +311,7 @@ def _logits(params, cfg: ArchConfig, x, rules=None):
                   else x @ params["head"])
         return _c(rules, logits, (rules.batch if rules else None), None,
                   (rules.model if rules else None))
-    return torch.einsum("bsd,kdv->bskv", x, params["head"])
+    return L.codebook_logits(x, params["head"])
 
 
 def _positions_cos_sin(cfg: ArchConfig, inputs, seq_len: int,
@@ -353,6 +371,18 @@ def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, impl, chunk,
     return _c(rules, x, *_act_spec(rules)), aux
 
 
+def _dtensor_scoped(fn):
+    """``fn(params, cfg, *args, **kw)`` under :func:`layers.dtensor_scope`
+    of ``params`` and ``args``: with ``DTensor`` parameters the model's
+    own constants join them as replicated ``DTensor``s."""
+    @functools.wraps(fn)
+    def scoped(params, cfg, *args, **kw):
+        with L.dtensor_scope(params, args):
+            return fn(params, cfg, *args, **kw)
+    return scoped
+
+
+@_dtensor_scoped
 def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
             rules: Optional[ShardRules] = None,
             remat: Optional[bool] = None):
@@ -406,10 +436,12 @@ def token_ce(logits, labels, cfg: ArchConfig):
         pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits.float()).to(logits.dtype)
     lse = torch.logsumexp(logits.float(), dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = L.reduced(torch.gather(logits, -1, labels.long()[..., None]))
+    gold = gold[..., 0]
     return lse - gold.float()
 
 
+@_dtensor_scoped
 def loss_fn(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
             rules: Optional[ShardRules] = None,
             remat: Optional[bool] = None):
@@ -536,10 +568,15 @@ def block_decode(lp, x, cache, layer: int, length: int, cos, sin,
                                    cache["conv"][layer], cfg)
         _store(cache, "ssm", layer, st)
         _store(cache, "conv", layer, conv)
-        return x + y
-    return _ffn(lp, x, cfg, rules)[0]
+        return _c(rules, x + y, *_act_spec(rules))
+    # the residual stream's constraints (the identity on a plain tensor)
+    # reduce a DTensor's pending sums once a block, where XLA's sharding
+    # propagation does so without being told
+    x = _c(rules, x, *_act_spec(rules))
+    return _c(rules, _ffn(lp, x, cfg, rules)[0], *_act_spec(rules))
 
 
+@_dtensor_scoped
 def decode_step(params, cfg: ArchConfig, cache, inputs, *,
                 rules: Optional[ShardRules] = None):
     """One serve step: new token at position ``inputs['length']`` (an int).
@@ -547,7 +584,9 @@ def decode_step(params, cfg: ArchConfig, cache, inputs, *,
     inputs: tokens (B,1) or (B,1,K) / embeds (B,1,D); positions (3,B,1)
     for M-RoPE; length.  Returns (logits, cache) — the same cache dict,
     updated in place."""
-    x = _embed_inputs(params, cfg, inputs)
+    # the constraint is the identity on a plain tensor; a DTensor lookup
+    # in a vocab-sharded table is reduced here, as forward's is
+    x = _c(rules, _embed_inputs(params, cfg, inputs), *_act_spec(rules))
     length = int(inputs["length"])
     if cfg.pos_kind == "mrope":
         cos, sin = L.mrope_cos_sin(inputs["positions"], _rope_dim(cfg),

@@ -79,17 +79,39 @@ def compressed_psum(g, group=None, error=None):
     return out.reshape(shape), new_error
 
 
+def _dtensor_psum(g, group, error):
+    """:func:`compressed_psum` of a ``DTensor`` gradient over the mesh dim
+    whose group is ``group`` (the reference's ``shard_map`` manual on
+    ``'pod'``): the gradient, replicated over that dim (each pod's own),
+    has its pending sums on the other dims reduced to the error buffer's
+    layout (the parameter's), and each rank's local shard goes through
+    the int8 reduction over ``group``.  The results are laid out as the
+    parameter."""
+    from repro_torch.models.layers import from_local
+    mesh = g.device_mesh
+    if not any(mesh.get_group(i) == group for i in range(mesh.ndim)):
+        raise ValueError("the int8 reduction's group is no dim of the "
+                         "gradients' mesh")
+    g = g.redistribute(mesh, error.placements)
+    out, err = compressed_psum(g.to_local(), group, error.to_local())
+    return (from_local(out, mesh, error.placements, g.shape),
+            from_local(err, mesh, error.placements, g.shape))
+
+
 def tree_compressed_psum(grads, group=None, errors=None):
     """:func:`compressed_psum` leaf by leaf over a gradient tree.  Returns
     ``(g_avg, new_errors)``, the errors bf16 as in the reference (zeros
-    when ``errors`` is None)."""
+    when ``errors`` is None).  ``DTensor`` leaves (with their errors) are
+    reduced over the mesh dim of ``group`` (:func:`_dtensor_psum`)."""
+    from repro_torch.models.layers import is_dtensor
     leaves, spec = pytree.tree_flatten(grads)
     if errors is None:
         errs = [torch.zeros(g.shape, dtype=torch.bfloat16, device=g.device)
                 for g in leaves]
     else:
         errs = spec.flatten_up_to(errors)
-    out = [compressed_psum(g, group, e) for g, e in zip(leaves, errs)]
+    out = [_dtensor_psum(g, group, e) if is_dtensor(g)
+           else compressed_psum(g, group, e) for g, e in zip(leaves, errs)]
     return (pytree.tree_unflatten([o[0] for o in out], spec),
             pytree.tree_unflatten([o[1].to(torch.bfloat16) for o in out],
                                   spec))

@@ -89,21 +89,47 @@ class _Handoff:
         return total / n_tokens
 
 
+def _local(t):
+    """A ``DTensor``'s local shard (a view: in-place collectives write
+    through), a plain tensor itself."""
+    return t.to_local() if L.is_dtensor(t) else t
+
+
+def _like(local, like):
+    """``local`` as a ``DTensor`` laid out as ``like`` = (mesh,
+    placements, global shape), or itself when ``like`` is None."""
+    return local if like is None else L.from_local(local, *like)
+
+
+def _empty(shape, dtype, device, like):
+    """A receive buffer of ``shape``: one rank's shard of it when the
+    hop carries ``DTensor``s laid out as ``like``."""
+    if like is not None:
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        shape, _ = compute_local_shape_and_global_offset(shape, like[0],
+                                                         like[1])
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
 class _Send(torch.autograd.Function):
-    """Forward: send ``y`` to ``peer``; backward: receive its gradient."""
+    """Forward: send ``y`` to ``peer``; backward: receive its gradient.
+    A ``DTensor`` hop sends each rank's shard to its peer's."""
 
     @staticmethod
     def forward(ctx, y, peer, group, tag):
         ctx.peer, ctx.group, ctx.tag = peer, group, tag
         ctx.shape, ctx.dtype, ctx.device = y.shape, y.dtype, y.device
-        dist.send(y.contiguous(), peer, group=group, tag=tag)
+        ctx.like = ((y.device_mesh, y.placements, tuple(y.shape))
+                    if L.is_dtensor(y) else None)
+        dist.send(_local(y).contiguous(), peer, group=group, tag=tag)
         return y.new_zeros(())
 
     @staticmethod
     def backward(ctx, _):
-        g = torch.empty(ctx.shape, dtype=ctx.dtype, device=ctx.device)
+        g = _empty(ctx.shape, ctx.dtype, ctx.device, ctx.like)
         dist.recv(g, ctx.peer, group=ctx.group, tag=ctx.tag)
-        return g, None, None, None
+        return _like(g, ctx.like), None, None, None
 
 
 class _Recv(torch.autograd.Function):
@@ -112,16 +138,17 @@ class _Recv(torch.autograd.Function):
     graph, so the backward pass reaches it."""
 
     @staticmethod
-    def forward(ctx, anchor, peer, group, tag, shape, dtype):
+    def forward(ctx, anchor, peer, group, tag, shape, dtype, like):
         ctx.peer, ctx.group, ctx.tag = peer, group, tag
-        x = torch.empty(shape, dtype=dtype, device=anchor.device)
+        x = _empty(shape, dtype, anchor.device, like)
         dist.recv(x, peer, group=group, tag=tag)
-        return x
+        return _like(x, like)
 
     @staticmethod
     def backward(ctx, g):
-        dist.send(g.contiguous(), ctx.peer, group=ctx.group, tag=ctx.tag)
-        return None, None, None, None, None, None
+        dist.send(_local(g).contiguous(), ctx.peer, group=ctx.group,
+                  tag=ctx.tag)
+        return None, None, None, None, None, None, None
 
 
 class _Wire:
@@ -130,10 +157,11 @@ class _Wire:
     every rank alike, so the blocking sends and receives pair up; the
     microbatch is also the tag."""
 
-    def __init__(self, group, device):
+    def __init__(self, group, device, like=None):
         self.group = group
         self.anchor = torch.zeros((), device=device, requires_grad=True)
         self.sent = []
+        self.like = like         # the activations' DTensor layout, if any
 
     def _peer(self, stage: int) -> int:
         return dist.get_global_rank(self.group, stage)
@@ -144,14 +172,15 @@ class _Wire:
 
     def recv(self, stage: int, m: int, shape, dtype):
         return _Recv.apply(self.anchor, self._peer(stage - 1), self.group,
-                           m, shape, dtype)
+                           m, shape, dtype,
+                           self.like and (*self.like, tuple(shape)))
 
     def loss(self, total, n_tokens: int):
         """The global loss on every rank, differentiating as this rank's
         part of it (the last stage's cross entropy, the other stages'
         sends)."""
         value = total.detach().clone()
-        dist.all_reduce(value, group=self.group)
+        dist.all_reduce(_local(value), group=self.group)
         own = total / n_tokens + sum(self.sent)
         return own + (value / n_tokens - own).detach()
 
@@ -173,13 +202,18 @@ def make_pp_loss_fn(cfg: ArchConfig, pc: PipelineConfig,
         if tokens.shape[0] % M:
             raise ValueError(f"batch {tokens.shape[0]} does not split "
                              f"into {M} microbatches")
-        tok_m, lab_m = torch.chunk(tokens, M), torch.chunk(labels, M)
+        tok_m, lab_m = TS.chunks(tokens, M), TS.chunks(labels, M)
         seq = tokens.shape[1]
         shape = (tokens.shape[0] // M, seq, cfg.d_model)
         cos, sin = T._positions_cos_sin(cfg, batch, seq, T._rope_dim(cfg),
                                         tokens.device)
+        like = None
+        if L.is_dtensor(params["ln_f"]):
+            from repro_torch.launch.mesh import placements
+            mesh = params["ln_f"].device_mesh
+            like = (mesh, placements(T.P(*T._act_spec(rules)), mesh))
         hop = (_Handoff() if group is None
-               else _Wire(group, tokens.device))
+               else _Wire(group, tokens.device, like))
         total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for t in range(M + S - 1):
             for s in stages:
@@ -215,14 +249,14 @@ def _reduce_and_clip(pc: PipelineConfig, group):
         for g, spec in convert.leaves_with_specs(grads,
                                                  _opt_specs(grads, pc)):
             if spec == T.P() and group is not None:
-                dist.all_reduce(g, group=group)
+                dist.all_reduce(_local(g), group=group)
             sq = torch.sum(torch.square(g.float()))
             if spec == T.P():
                 shared = shared + sq
             else:
                 local = local + sq
         if group is not None:
-            dist.all_reduce(local, group=group)
+            dist.all_reduce(_local(local), group=group)
         gnorm = torch.sqrt(local + shared)
         scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -256,8 +290,9 @@ def make_pp_train_step(cfg: ArchConfig, tc: TS.TrainConfig,
     def grads(params, batch):
         leaves, spec = pytree.tree_flatten(params)
         leaves = [p.detach().requires_grad_() for p in leaves]
-        loss = loss_fn(pytree.tree_unflatten(leaves, spec), batch)
-        loss.backward()
+        with L.dtensor_scope(leaves):
+            loss = loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+            loss.backward()
         g = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in leaves]
         return (pytree.tree_unflatten(g, spec),

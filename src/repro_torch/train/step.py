@@ -28,6 +28,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import convert
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import (clip_by_global_norm, cosine_schedule,
                                make_optimizer)
@@ -163,11 +164,29 @@ def _grads(cfg: ArchConfig, tc: TrainConfig, params, batch, rules=None):
     loss, metrics = T.loss_fn(pytree.tree_unflatten(leaves, spec), cfg,
                               batch, impl=tc.attn_impl, chunk=tc.attn_chunk,
                               rules=rules)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with L.dtensor_scope(leaves):      # the backward meets the constants
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, leaves)]
     return (pytree.tree_unflatten(grads, spec),
             {k: v.detach() for k, v in metrics.items()})
+
+
+def chunks(v, m: int, dim: int = 0):
+    """``torch.chunk(v, m, dim)``.  A ``DTensor`` split on ``dim`` is
+    chunked on each rank's own rows (microbatch i takes every rank's
+    i-th local chunk), where ``torch.chunk`` would gather the rows
+    first; the chunks keep ``v``'s layout."""
+    if not L.is_dtensor(v):
+        return torch.chunk(v, m, dim=dim)
+    from torch.distributed.tensor import Shard
+    if Shard(dim) not in v.placements:
+        return torch.chunk(v, m, dim=dim)
+    shape = list(v.shape)
+    shape[dim] //= m
+    return tuple(L.from_local(part.contiguous(), v.device_mesh,
+                              v.placements, shape)
+                 for part in torch.chunk(v.to_local(), m, dim=dim))
 
 
 def _split(batch, m: int):
@@ -178,7 +197,7 @@ def _split(batch, m: int):
         if v.shape[dim] % m:
             raise ValueError(f"batch {v.shape[dim]} of {k!r} does not "
                              f"split into {m}")
-        parts[k] = torch.chunk(v, m, dim=dim)
+        parts[k] = chunks(v, m, dim=dim)
     return [{k: parts[k][i] for k in batch} for i in range(m)]
 
 
@@ -190,8 +209,8 @@ def compute_grads(cfg: ArchConfig, tc: TrainConfig, params, batch,
     if m == 1:
         return _grads(cfg, tc, params, batch, rules)
     accum = getattr(torch, tc.accum_dtype)
-    acc_g = pytree.tree_map(lambda p: torch.zeros(p.shape, dtype=accum,
-                                                  device=p.device), params)
+    acc_g = pytree.tree_map(lambda p: torch.zeros_like(p, dtype=accum),
+                            params)
     acc_m = None
     for micro in _split(batch, m):
         g, metrics = _grads(cfg, tc, params, micro, rules)
@@ -256,7 +275,12 @@ def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group,
     on dim 1), the gradient reduction is the explicit int8 psum with
     error feedback in ``state['ef']``, and the metrics are averaged over
     the group.  The model runs under ``rules`` with ``'pod'`` taken out
-    of the batch axes, as the reference's inner rules are."""
+    of the batch axes, as the reference's inner rules are.
+
+    ``DTensor`` parameters and state lie on a mesh one of whose dims has
+    ``group`` as its group (the dry-run's ``'pod'``), replicated over it;
+    the batch is laid out by the inner rules, so each rank takes its
+    slice of its own rows (:func:`chunks`)."""
     if tc.grad_compression != "int8_pod":
         raise ValueError("make_compressed_train_step needs "
                          "grad_compression='int8_pod'")
@@ -268,7 +292,8 @@ def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group,
 
     def pmean(v):
         v = v.clone()                   # "ce" and "loss" share storage
-        dist.all_reduce(v, group=group)
+        # a replicated DTensor's local value is reduced in place
+        dist.all_reduce(v.to_local() if L.is_dtensor(v) else v, group=group)
         return v / p
 
     def step_fn(params, state, batch):
