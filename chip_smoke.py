@@ -65,6 +65,19 @@ decode steps) against its dense path; qwen3-moe-235b-a22b at full width
 with 4 of its 94 layers served in 2 waves (512 and 1,024 tokens) against
 its dense path, and one of its MoE layers against an every-expert form.
 
+Last, the five archs no earlier phase serves (``ZOO_SERVE``), smallest
+first, each at full width with random fp32 weights from the seed through
+``BatchServer`` (bf16 cache, 2 waves of 4 requests, 16 new tokens each)
+with the flash and SSD launch counts set to 0 just before the timed waves
+and read just after, then against its dense path; each one's weights are
+freed before the next: mamba2-130m at full depth (1,024- and 4,096-token
+waves through the SSD kernel, d_state 128), musicgen-medium at full depth
+(MHA over 4 codebooks), mistral-nemo-12b at full depth (GQA 32/8),
+nemotron-4-340b with 1 of its 96 layers (96/8 at D 192) and arctic-480b
+with 1 of its 35 (56/8, 128 experts top-2 beside a dense FFN).  The
+calibrator's phase also runs the drift tool
+(``repro_torch.tools.calibration_drift``) for k-means on the card.
+
 Each phase prints one JSON line; the card's ``nvidia-smi`` name and power
 limit, then a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line come last.  Any failure raises and
@@ -140,18 +153,30 @@ FLASH_CASES = [
     (4, 1024, 1024, 12, 2, 128, True, None),
     (4, 512, 512, 64, 4, 128, True, None),
     (4, 1024, 1024, 64, 4, 128, True, None),
+    (4, 2048, 2048, 24, 24, 64, True, None),
+    (4, 2048, 2048, 32, 8, 128, True, None),
+    (4, 1024, 1024, 96, 8, 192, True, None),
+    (4, 1024, 1024, 56, 8, 128, True, None),
 ]
 FLASH_MAIN = [(4, 1024, 1024, 25, 5, 64, True, 2048),
               (4, 4096, 4096, 25, 5, 64, True, 2048)]
 # the zoo's prefills through the flash kernel: qwen2-vl-2b (12 heads on 2,
-# GQA ratio 6) and qwen3-moe's 1,024-token wave (64 on 4, ratio 16)
+# GQA ratio 6) and qwen3-moe's 1,024-token wave (64 on 4, ratio 16); then
+# the widest waves of the ZOO_SERVE phases: musicgen-medium (MHA 24/24,
+# D 64), mistral-nemo-12b (32 on 8, D 128), nemotron-4-340b (96 on 8, a
+# group of 12, D 192) and arctic-480b (56 on 8, a group of 7, D 128)
 FLASH_ZOO = [(4, 1024, 1024, 12, 2, 128, True, None),
-             (4, 1024, 1024, 64, 4, 128, True, None)]
+             (4, 1024, 1024, 64, 4, 128, True, None),
+             (4, 2048, 2048, 24, 24, 64, True, None),
+             (4, 2048, 2048, 32, 8, 128, True, None),
+             (4, 1024, 1024, 96, 8, 192, True, None),
+             (4, 1024, 1024, 56, 8, 128, True, None)]
 # SSD: (b, s, nh, hd, g, ds, chunk).  The reference's cases
 # (tests/test_kernels.py:99-106), hymba-1.5b's widest wave, mamba2-130m's
 # widths, and a ragged chunk of 200; then the edges of the kernel's tiles:
 # ds 4 and 256, hd 30 (rows staged element by element) and 256, 4 B/C
-# groups of 8 heads, and hymba's widths at 1,024 tokens.
+# groups of 8 heads, and hymba's widths at 1,024 tokens; last,
+# mamba2-130m's widest serving wave.
 SSD_CASES = [
     (1, 64, 2, 16, 1, 16, 16),
     (2, 128, 4, 32, 1, 16, 32),
@@ -167,8 +192,11 @@ SSD_CASES = [
     (1, 400, 4, 30, 2, 4, 200),
     (1, 256, 8, 32, 4, 16, 64),
     (2, 1024, 50, 64, 1, 16, 256),
+    (4, 4096, 24, 64, 1, 128, 256),
 ]
 SSD_MAIN = [(4, 1024, 50, 64, 1, 16, 256), (4, 4096, 50, 64, 1, 16, 256)]
+# mamba2-130m served at full depth: its 4,096-token wave, d_state 128
+SSD_ZOO = [(4, 4096, 24, 64, 1, 128, 256)]
 # tests/test_kernels.py:16-18 (fp32, bf16) and :123 (the SSD scan)
 TOL = {"fp32": 2e-5, "bf16": 5e-2}
 SSD_TOL = 1e-3
@@ -218,6 +246,18 @@ MOE_LAYERS = 4
 MOE_WAVES = (512, 1024)
 MOE_CHECK_TOKENS = 256
 MOE_TOL = 2e-4
+# the five archs first served on the card at full width (ROADMAP A11),
+# smallest first: (phase, arch, layers kept, the two waves' prompt tokens);
+# depth is cut where the fp32 weights fill the card (nemotron: 37.75 GB of
+# embedding and head and 13.45 GB a layer, 65.0 GB at two layers before
+# any activation; arctic: 56.28 GB for its first layer)
+ZOO_SERVE = [("serve_mamba2", "mamba2-130m", 24, (1024, 4096)),
+             ("serve_musicgen", "musicgen-medium", 48, (1024, 2048)),
+             ("serve_mistral", "mistral-nemo-12b", 40, (1024, 2048)),
+             ("serve_nemotron", "nemotron-4-340b", 1, (512, 1024)),
+             ("serve_arctic", "arctic-480b", 1, (512, 1024))]
+CARD_BYTES = 80e9             # a phase must peak below this
+PLAN_LIMIT_BYTES = 75e9       # a reckoned peak past this fails on the host
 # the GPipe step (both stages in one process) and the sharding rules
 GPIPE_STAGES = 2
 GPIPE_MICROBATCHES = 4
@@ -741,7 +781,7 @@ def time_attention_ssd(torch, fa, ssd, device):
             emit("timing", **row)
             rows.append(row)
             del q, k, v, lib_out, ker_out
-    for case in SSD_MAIN:
+    for case in SSD_MAIN + SSD_ZOO:
         chunk = case[-1]
         for dtype in ("fp32", "bf16"):
             args = ssd_inputs(torch, case, dtype, device, 13)
@@ -770,28 +810,32 @@ def _top2(torch, logits, vocab):
 def run_server(torch, serve, params, cfg, device, impl, prompts,
                max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW_TOKENS):
     """Both waves through a fresh ``BatchServer``, capturing each wave's
-    last-position prefill logits, its prefill cache, the two largest
-    logits of every greedy token, and the first request's logits at
-    every step."""
+    last-position prefill logits (every codebook's), its prefill cache,
+    the two largest logits of every greedy token, and the first request's
+    logits at every step (codebook 0's, which the server samples, where
+    there are several)."""
     server = serve.BatchServer(params, cfg, n_slots=SERVE_SLOTS,
                                max_len=max_len, impl=impl, device=device)
     captured = []
     prefill, decode = server._prefill1, server._decode
+    sampled = ((lambda t: t) if cfg.n_codebooks == 1
+               else (lambda t: t[:, 0]))
 
     def capture_prefill(p, inputs):
         logits, cache = prefill(p, inputs)
-        captured.append({"logits": logits[:, -1].float().clone(),
+        last = logits[:, -1]
+        captured.append({"logits": last.float().clone(),
                          "cache": {k: v.clone() for k, v in cache.items()},
-                         "tops": [_top2(torch, logits[:, -1],
+                         "tops": [_top2(torch, sampled(last),
                                         cfg.vocab_size)],
-                         "rows": [logits[0, -1].float().clone()]})
+                         "rows": [sampled(last)[0].float().clone()]})
         return logits, cache
 
     def capture_decode(p, cache, inputs):
         logits, cache = decode(p, cache, inputs)
-        captured[-1]["tops"].append(_top2(torch, logits[:, 0],
-                                          cfg.vocab_size))
-        captured[-1]["rows"].append(logits[0, 0].float().clone())
+        step = sampled(logits[:, 0])
+        captured[-1]["tops"].append(_top2(torch, step, cfg.vocab_size))
+        captured[-1]["rows"].append(step[0].float().clone())
         return logits, cache
 
     server._prefill1, server._decode = capture_prefill, capture_decode
@@ -889,11 +933,27 @@ def serve_vs_plain(torch, serve, fa, ssd, params, cfg, prompts, done,
     if (fa.LAUNCHES["flash_attention"].count != f0
             or ssd.LAUNCHES["ssd_chunk_scan"].count != s0):
         raise AssertionError("the dense path launched a kernel")
+    errs = hold_waves(torch, captured, captured_p)
+    compared, near_ties = compare_tokens(done, done_p, captured_p,
+                                         lambda top1: NEAR_TIE)
+    emit("serve_vs_plain", wall_s=wall, max_abs_err=errs,
+         tokens_compared=compared, near_ties=near_ties,
+         tokens_equal=sum(a.result_tokens == b.result_tokens
+                          for a, b in zip(done, done_p)))
+
+
+def hold_waves(torch, captured, captured_p, hold=True):
+    """Each wave's prefill logits and captured cache, kernel run against
+    dense run: logits within 2e-3 of 1 + their size, cache entries within
+    2e-3 (a bf16 k/v entry also within one bf16 rounding, 2^-7 of its
+    size, since the fp32 values it rounds differ slightly); reported, not
+    held, when ``hold`` is off.  Returns the largest difference of each."""
     errs = {}
     for w, (a, b) in enumerate(zip(captured, captured_p)):
         diff = (a["logits"] - b["logits"]).abs()
         errs[f"wave{w}_logits"] = float(diff.max())
-        if bool((diff > MODEL_TOL * (1 + b["logits"].abs())).any()):
+        if hold and bool(
+                (diff > MODEL_TOL * (1 + b["logits"].abs())).any()):
             raise AssertionError(f"wave {w}: prefill logits differ by "
                                  f"{float(diff.max())}")
         for name, ca in a["cache"].items():
@@ -901,15 +961,11 @@ def serve_vs_plain(torch, serve, fa, ssd, params, cfg, prompts, done,
             diff = (ca.float() - cb).abs()
             slack = 2.0 ** -7 if ca.dtype == torch.bfloat16 else 0.0
             errs[f"wave{w}_{name}"] = float(diff.max())
-            if bool((diff > MODEL_TOL + (MODEL_TOL + slack) * cb.abs()).any()):
+            if hold and bool(
+                    (diff > MODEL_TOL + (MODEL_TOL + slack) * cb.abs()).any()):
                 raise AssertionError(f"wave {w}: cache {name} differs by "
                                      f"{float(diff.max())}")
-    compared, near_ties = compare_tokens(done, done_p, captured_p,
-                                         lambda top1: NEAR_TIE)
-    emit("serve_vs_plain", wall_s=wall, max_abs_err=errs,
-         tokens_compared=compared, near_ties=near_ties,
-         tokens_equal=sum(a.result_tokens == b.result_tokens
-                          for a, b in zip(done, done_p)))
+    return errs
 
 
 def compare_tokens(done, done_p, captured_p, tol):
@@ -2224,8 +2280,12 @@ def calibrate(torch, kk, device):
     """``Calibrator(...).calibrate(measure_service=True)`` at 2,500 × 32,
     every processor on the card: the fitted efficiency and sigma of the
     five models beside the committed paper-testbed fit, and the torch
-    flop count beside the committed HLO figure."""
+    flop count beside the committed HLO figure.  Then the drift tool's
+    k-means row (``repro_torch.tools.calibration_drift``, 2 messages on
+    the card): its count within the calibrator's band and within a factor
+    of 2 of its pinned counting ratio, as its CLI's gate holds it."""
     from repro_torch.cost import calibrate as cal
+    from repro_torch.tools import calibration_drift as drift
     for counter in kk.LAUNCHES.values():
         counter.reset()
     t0 = time.perf_counter()
@@ -2255,7 +2315,16 @@ def calibrate(torch, kk, device):
     # three k-means processors, a warm-up and 5 samples each
     if launches["kmeans_assign_update"] < 3 * 6:
         raise AssertionError(f"calibration launched B1 {launches}")
-    emit("calibrate", wall_s=wall, models=models, launches=launches)
+    report = drift.drift_report(models=["kmeans"], n_messages=2,
+                                device=device)
+    (row,) = report["models"]
+    if (report["meta"]["device"] != str(device)
+            or not 0.75 <= row["kernel_flops_ratio"] <= 1.33
+            or not 0.5 <= drift.drift(row) <= 2.0
+            or not row["achieved_fraction_of_peak"] > 0.0):
+        raise AssertionError(f"calibration drift {report}")
+    emit("calibrate", wall_s=wall, models=models, launches=launches,
+         drift=row, drift_meta=report["meta"])
 
 
 def lm_example(torch, fa, device):
@@ -2546,13 +2615,14 @@ def vlm_mrope(torch, T, fa, device):
     torch.cuda.empty_cache()
 
 
-def moe_layer_vs_dense(torch, L, cfg, lp, device):
-    """One full-width MoE layer on 256 tokens against an independent dense
-    formulation: every token through every expert, weighted by its gates
-    and the keep mask of ``_dispatch_positions``.  Tolerance 2e-4 of the
-    largest magnitude."""
+def moe_layer_vs_dense(torch, L, cfg, device):
+    """One full-width MoE layer (fp32 weights drawn from the seed) on 256
+    tokens against an independent dense formulation: every token through
+    every expert, weighted by its gates and the keep mask of
+    ``_dispatch_positions``.  Tolerance 2e-4 of the largest magnitude."""
     m, d = cfg.moe, cfg.d_model
     g = torch.Generator(device=device).manual_seed(SEED + 4)
+    lp = L.moe_init(g, cfg, torch.float32, device)
     x = torch.randn((1, MOE_CHECK_TOKENS, d), generator=g, device=device)
     with torch.inference_mode():
         y, aux = L.moe_forward(lp, x, cfg)
@@ -2575,46 +2645,150 @@ def moe_layer_vs_dense(torch, L, cfg, lp, device):
     if not np.isfinite(diff) or diff > MOE_TOL * scale:
         raise AssertionError(f"MoE layer vs dense formulation: {diff} > "
                              f"{MOE_TOL} × {scale}")
-    return {"tokens": MOE_CHECK_TOKENS, "capacity": cap,
-            "dropped_frac": float(aux["dropped_frac"]),
-            "kept_pairs": int(keep.sum()), "max_abs": diff, "scale": scale,
-            "tol_of_scale": MOE_TOL}
+    emit("moe_layer_vs_dense", arch=cfg.name, tokens=MOE_CHECK_TOKENS,
+         capacity=cap, dropped_frac=float(aux["dropped_frac"]),
+         kept_pairs=int(keep.sum()), max_abs=diff, scale=scale,
+         tol_of_scale=MOE_TOL)
 
 
-def serve_moe(torch, serve, T, L, fa, device):
-    """qwen3-moe-235b-a22b at full width (128 experts, top-8) with 4 of
-    its 94 layers (fp32 weights: about 10 GB a layer and 5 GB of
-    embedding and head, 45 GB in all; all 94 do not fit one card) through
-    ``BatchServer(impl="kernel")``: 2 waves of 4 requests, 512- and
-    1,024-token prompts, 16 new tokens each, the flash launch count set
-    to 0 just before and read just after (one a layer a wave).  The
-    prefills' ``dropped_frac`` and per-expert token counts are recorded
-    from the router.  The same waves at ``impl="dense"``: tokens equal
-    up to the first place where the plain run's top two logits lie within
-    the logits tolerance (2e-3 of 1 + the top logit); a routing near-tie
-    can flip an expert, so prefill logits are reported, not held.  Then
-    one MoE layer against :func:`moe_layer_vs_dense`."""
+def cache_bytes(cfg, batch, positions):
+    """Bytes of ``batch`` sequences' cache over ``positions`` positions:
+    the bf16 k/v entries (a sliding window caps the positions) and the
+    fp32 SSM and conv states."""
+    n = 0
+    if cfg.attn_kind in ("gqa", "hybrid"):
+        if cfg.sliding_window is not None:
+            positions = min(positions, cfg.sliding_window)
+        n += (cfg.n_layers * 2 * batch * positions * cfg.n_kv_heads
+              * cfg.head_dim * 2)
+    if cfg.ssm is not None:
+        m = cfg.ssm
+        d_in = m.expand * cfg.d_model
+        conv = d_in + 2 * m.n_groups * m.d_state
+        n += cfg.n_layers * batch * 4 * (
+            d_in * m.d_state + (m.d_conv - 1) * conv)
+    return n
+
+
+def serve_plan(torch, T, cfg, waves, slots=SERVE_SLOTS,
+               new_tokens=ZOO_NEW_TOKENS):
+    """The reckoned device memory of a :func:`serve_zoo` phase in bytes,
+    from shapes alone: the fp32 weights counted on ``meta``; the cache at
+    ``max(waves) + new_tokens`` positions, held live, once more while the
+    prefill stacks its layers, and cloned for each wave of both runs by
+    :func:`run_server`; the widest wave's fp32 logits at every position
+    (the prefill computes them all, the server keeps the last); and the
+    larger of the dense path's transients, its fp32 scores twice (each
+    step of ``attention_dense`` makes a new tensor) or three FFN-wide fp32
+    activations (the dense FFN or residual, the SSM's in-projection)."""
+    s = max(waves)
+    params = 4 * T.param_count(T.param_shapes(cfg, dtype=torch.float32))
+    cache = cache_bytes(cfg, slots, s + new_tokens)
+    width = cfg.d_ff
+    if cfg.ssm is not None:
+        m = cfg.ssm
+        d_in = m.expand * cfg.d_model
+        width = max(width, 2 * d_in + 2 * m.n_groups * m.d_state
+                    + d_in // m.head_dim)
+    logits = 4 * slots * s * cfg.n_codebooks * cfg.padded_vocab_size
+    transient = max(2 * 4 * slots * cfg.n_heads * s * s,
+                    3 * 4 * slots * s * width)
+    captured = 2 * len(waves) * cache
+    return {"params": params, "cache": cache, "captured_caches": captured,
+            "logits": logits, "transient": transient,
+            "peak": params + captured + 2 * cache + logits + transient}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a parameter tree."""
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    values = tree.values() if isinstance(tree, dict) else tree
+    return sum(tree_bytes(v) for v in values)
+
+
+def decode_weight_bytes(cfg, params, batch, experts=None):
+    """The weight bytes one decode step of ``batch`` sequences must read:
+    every parameter but the embedding table's unread rows (one row a
+    sequence and codebook; a tied table is read whole as the head), and of
+    each MoE layer's expert stacks only ``experts`` of them (the distinct
+    experts the step's tokens chose)."""
+    weights = tree_bytes(params)
+    if "embed" in params and not cfg.tie_embeddings:
+        emb = params["embed"]
+        weights -= tree_bytes(emb) - (batch * cfg.n_codebooks
+                                      * emb.shape[-1] * emb.element_size())
+    if cfg.moe is not None:
+        unread = 1.0 - experts / cfg.moe.n_experts
+        for lp in params["blocks"]:
+            weights -= unread * sum(tree_bytes(lp["moe"][k]) for k in
+                                    ("w_gate", "w_up", "w_down"))
+    return weights
+
+
+def serve_zoo(torch, serve, T, L, fa, ssd, device, phase, arch, layers,
+              waves):
+    """One arch at full width and ``layers`` of its layers
+    (:func:`_serve_zoo_run`, whose locals hold the weights); then the
+    weights are freed, and the card's allocation must be back at its
+    level before the phase."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    fields = _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch,
+                            layers, waves)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(device)
+    emit(phase, **fields, allocated_before_gb=base / 1e9,
+         allocated_after_gb=after / 1e9)
+    if after > base:
+        raise AssertionError(f"{phase}: {after - base} B still allocated "
+                             f"after its weights were freed")
+
+
+def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
+                   waves):
+    """Random fp32 weights from the seed, a bf16 cache, through
+    ``BatchServer(impl="kernel")``: 2 waves of 4 requests, 16 new tokens
+    each, the kernel launch counts set to 0 just before the timed waves
+    and read just after (a flash launch a layer a wave for attention, an
+    SSD launch a layer a wave for the SSM).  Then the same waves at
+    ``impl="dense"``: tokens equal up to the first place where the dense
+    run's top two logits lie within 2e-3 of 1 + the top logit; prefill
+    logits and caches held by :func:`hold_waves`, but for an MoE, whose
+    routing may flip at a near-tie, where they are reported.  The MoE's
+    prefill ``dropped_frac`` and tokens per expert are recorded from the
+    router, and the distinct experts each decode step chose.  The peak
+    (init, kernel and dense runs) must stay below 80 GB.  Returns the
+    phase's fields."""
     import dataclasses
     from repro_torch.configs import get_arch
-    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
-    max_len = max(MOE_WAVES) + ZOO_NEW_TOKENS
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    plan = serve_plan(torch, T, cfg, waves)
+    max_len = max(waves) + ZOO_NEW_TOKENS
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.monotonic()
     params = T.init_params(cfg, device=device, dtype=torch.float32,
                            seed=SEED)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
+    peaks = {"init": torch.cuda.max_memory_allocated(device)}
     rng = np.random.default_rng(SEED + 5)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
-               for n in MOE_WAVES for _ in range(SERVE_SLOTS)]
+               for n in waves for _ in range(SERVE_SLOTS)]
     run_server(torch, serve, params, cfg, device, "kernel",
                [prompts[0][:64]], max_len=max_len, new_tokens=2)
+
     route, forward = L.moe_route, L.moe_forward
-    routes, drops = [], []
+    routes, drops, decode_ids = [], [], []
 
     def kept_route(p, xf, top_k):
         out = route(p, xf, top_k)
-        if xf.shape[-2] > SERVE_SLOTS:                  # a prefill
-            routes.append(out[3])
+        (routes if xf.shape[-2] > SERVE_SLOTS else decode_ids).append(
+            out[3])
         return out
 
     def kept_forward(p, x, cfg, **kw):
@@ -2623,59 +2797,93 @@ def serve_moe(torch, serve, T, L, fa, device):
             drops.append(aux["dropped_frac"])
         return y, aux
 
-    counter = fa.LAUNCHES["flash_attention"]
+    counters = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_chunk_scan": ssd.LAUNCHES["ssd_chunk_scan"]}
+    runs = {"flash_attention": cfg.attn_kind in ("gqa", "hybrid"),
+            "ssd_chunk_scan": cfg.attn_kind in ("none", "hybrid")}
+    want = {name: len(waves) * layers * int(on) for name, on in runs.items()}
     torch.cuda.reset_peak_memory_stats(device)
-    L.moe_route, L.moe_forward = kept_route, kept_forward
+    if cfg.moe is not None:
+        L.moe_route, L.moe_forward = kept_route, kept_forward
     try:
-        counter.reset()
+        for c in counters.values():
+            c.reset()
         server, done, captured, wall = run_server(
             torch, serve, params, cfg, device, "kernel", prompts,
             max_len=max_len, new_tokens=ZOO_NEW_TOKENS)
-        launches = {"flash_attention": counter.count}
+        launches = {name: c.count for name, c in counters.items()}
     finally:
         L.moe_route, L.moe_forward = route, forward
+    peaks["kernel"] = torch.cuda.max_memory_allocated(device)
+    if launches != want:
+        raise AssertionError(f"{arch} launches {launches}, expected {want} "
+                             f"(waves x layers)")
     stats = serve_stats(torch, server, done,
                         check_served(done, len(prompts), cfg,
                                      ZOO_NEW_TOKENS), wall, device)
-    want = len(MOE_WAVES) * cfg.n_layers
-    if launches["flash_attention"] != want:
-        raise AssertionError(f"MoE serve flash launches {launches}, "
-                             f"expected {want} (waves x layers)")
-    e = cfg.moe.n_experts
-    counts = [torch.bincount(ids.reshape(-1), minlength=e).tolist()
-              for ids in routes]
-    if len(counts) != want or any(sum(c) != n * SERVE_SLOTS * cfg.moe.top_k
-                                  for c, n in zip(
-                                      counts, np.repeat(MOE_WAVES,
-                                                        cfg.n_layers))):
-        raise AssertionError("the prefill routes do not cover every token")
+    for w in captured:
+        if not bool(torch.isfinite(w["logits"]).all()) or not all(
+                bool(torch.isfinite(v.float()).all())
+                for v in w["cache"].values()):
+            raise AssertionError(f"{arch}: non-finite prefill logits or "
+                                 f"cache")
 
+    torch.cuda.reset_peak_memory_stats(device)
     _, done_p, captured_p, wall_p = run_server(
         torch, serve, params, cfg, device, "dense", prompts,
         max_len=max_len, new_tokens=ZOO_NEW_TOKENS)
-    if counter.count != want:
-        raise AssertionError("the dense path launched the flash kernel")
+    peaks["dense"] = torch.cuda.max_memory_allocated(device)
+    if {name: c.count for name, c in counters.items()} != want:
+        raise AssertionError(f"{arch}: the dense path launched a kernel")
+    errs = hold_waves(torch, captured, captured_p, hold=cfg.moe is None)
     compared, near_ties = compare_tokens(
         done, done_p, captured_p, lambda top1: MODEL_TOL * (1 + abs(top1)))
-    layer = moe_layer_vs_dense(torch, L, cfg, params["blocks"][0]["moe"],
-                               device)
-    emit("serve_moe", arch=MOE_ARCH, layers=cfg.n_layers,
-         reduced="n_layers 94 -> 4", d_model=cfg.d_model,
-         experts=e, top_k=cfg.moe.top_k, params=T.param_count(params),
-         init_s=init_s, cache="bf16", **stats, launches=launches,
-         prefill_dropped_frac=[float(d) for d in drops],
-         prefill_expert_counts=counts,
-         prefill_expert_counts_min_max=[[min(c), max(c)] for c in counts],
-         dense_wall_s=wall_p, tokens_compared=compared,
-         near_ties=near_ties, tokens_equal=sum(
-             a.result_tokens == b.result_tokens
-             for a, b in zip(done, done_p)),
-         prefill_last_logits_max_abs_vs_dense=[
-             float((a["logits"] - b["logits"]).abs().max())
-             for a, b in zip(captured, captured_p)],
-         layer_vs_dense=layer)
-    del params, captured, captured_p
-    torch.cuda.empty_cache()
+    if max(peaks.values()) >= CARD_BYTES:
+        raise AssertionError(f"{arch} peaked at {peaks} B")
+
+    moe, experts = {}, None
+    if cfg.moe is not None:
+        e, k = cfg.moe.n_experts, cfg.moe.top_k
+        counts = [torch.bincount(ids.reshape(-1), minlength=e).tolist()
+                  for ids in routes]
+        if len(counts) != len(waves) * layers or any(
+                sum(c) != n * SERVE_SLOTS * k
+                for c, n in zip(counts, np.repeat(waves, layers))):
+            raise AssertionError("the prefill routes do not cover every "
+                                 "token")
+        experts = float(np.mean([len(set(ids.reshape(-1).tolist()))
+                                 for ids in decode_ids]))
+        every = sum(tree_bytes(lp["moe"][name]) for lp in params["blocks"]
+                    for name in ("w_gate", "w_up", "w_down"))
+        moe = dict(experts=e, top_k=k,
+                   prefill_dropped_frac=[float(d) for d in drops],
+                   prefill_expert_counts=counts,
+                   prefill_expert_counts_min_max=[[min(c), max(c)]
+                                                  for c in counts],
+                   decode_steps_routed=len(decode_ids),
+                   decode_distinct_experts_mean=experts,
+                   decode_all_experts_read_ms=every / HBM_BYTES_PER_S * 1e3)
+    weights = decode_weight_bytes(cfg, params, SERVE_SLOTS, experts)
+    cache = cache_bytes(cfg, SERVE_SLOTS, max(waves))
+    read_ms = weights / HBM_BYTES_PER_S * 1e3
+    return dict(
+        arch=arch, layers=layers,
+        reduced=(f"n_layers {full.n_layers} -> {layers}"
+                 if layers < full.n_layers else None),
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        head_dim=cfg.head_dim, codebooks=cfg.n_codebooks,
+        params=T.param_count(params), init_s=init_s, cache="bf16",
+        **stats, launches=launches,
+        dense_wall_s=wall_p, tokens_compared=compared, near_ties=near_ties,
+        tokens_equal=sum(a.result_tokens == b.result_tokens
+                         for a, b in zip(done, done_p)),
+        kernel_vs_dense=errs, logits_and_cache_held=cfg.moe is None,
+        peak_gb={name: v / 1e9 for name, v in peaks.items()},
+        plan_gb={name: v / 1e9 for name, v in plan.items()},
+        decode_weight_read_ms=read_ms,
+        decode_bound_ms=(weights + cache) / HBM_BYTES_PER_S * 1e3,
+        decode_over_weight_read=stats["decode_ms_per_step"][-1] / read_ms,
+        **moe)
 
 
 def main() -> int:
@@ -2689,6 +2897,7 @@ def main() -> int:
     import repro_torch.core as core
     import repro_torch.cost as cost
     import repro_torch.ml as ml
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kmeans as kk
@@ -2780,7 +2989,14 @@ def main() -> int:
     serve_mla(torch, serve, T, fa, device)
     mla_vs_host(torch, T, device)
     vlm_mrope(torch, T, fa, device)
-    serve_moe(torch, serve, T, L, fa, device)
+    serve_zoo(torch, serve, T, L, fa, ssd, device, "serve_moe", MOE_ARCH,
+              MOE_LAYERS, MOE_WAVES)
+    moe_layer_vs_dense(torch, L, get_arch(MOE_ARCH), device)
+    # the five archs never served on the card before (ROADMAP A11),
+    # smallest first, each one's weights freed before the next
+    for phase, arch, layers, waves in ZOO_SERVE:
+        serve_zoo(torch, serve, T, L, fa, ssd, device, phase, arch, layers,
+                  waves)
 
     kernels = []
     for name, replaces in (

@@ -57,8 +57,10 @@ def rms_norm(x, weight, eps=1e-5):
 
 
 def _init(generator, shape, scale, dtype, device):
-    return (torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32) * scale).to(dtype)
+    # scaled in place: a full-width tensor (arctic's 17.9 GB expert
+    # stacks) is never held twice
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32).mul_(scale).to(dtype)
 
 
 def silu(x):
@@ -1012,7 +1014,9 @@ def ssm_forward(p, x, cfg: ArchConfig, *, return_state=False, impl="dense"):
     out = y @ p["out_proj"]
     if return_state:
         k = s.d_conv - 1
-        conv_state = xbc_raw[:, -k:, :] if sl >= k else F.pad(
+        # a copy: a view of the tail would keep the layer's whole
+        # in-projection alive in the cache until the prefill ends
+        conv_state = xbc_raw[:, -k:, :].clone() if sl >= k else F.pad(
             xbc_raw, (0, 0, k - sl, 0))
         return out, (final, conv_state.to(x.dtype))
     return out

@@ -25,6 +25,9 @@ from repro_torch.ml import isoforest as tif
 from repro_torch.models import transformer as TT
 from repro_torch.serve import BatchServer, Request
 
+from zoo_heads import ARCHS as ZOO_HEAD_ARCHS
+from zoo_heads import head_config as zoo_head_config
+
 PRECISIONS = ("fp32", "bf16", "int8")
 CASES = [(257, 7, 3), (2500, 32, 25), (513, 128, 128)]
 # dmin: the expansion's cancellation floor at d ≈ 0 (tests/test_ml.py:75-79)
@@ -763,8 +766,9 @@ def _to(tree, device):
 
 
 def _zoo_inputs(cfg, lo, hi, seed=0):
-    """Positions lo..hi-1 of a seeded sequence (2 rows): token ids, or
-    embeddings with distinct (t, h, w) M-RoPE positions."""
+    """Positions lo..hi-1 of a seeded sequence (2 rows): token ids
+    (codebook ids for musicgen), or embeddings with distinct (t, h, w)
+    M-RoPE positions."""
     rng = np.random.default_rng(seed)
     if cfg.input_mode == "embeddings":
         emb = rng.standard_normal((2, hi, cfg.d_model)).astype(np.float32)
@@ -773,27 +777,38 @@ def _zoo_inputs(cfg, lo, hi, seed=0):
         return {"embeds": torch.from_numpy(emb[:, lo:hi]),
                 "positions": torch.from_numpy(
                     np.ascontiguousarray(pos[:, :, lo:hi]).astype(np.int32))}
-    toks = rng.integers(0, cfg.vocab_size, (2, hi))
+    shape = (2, hi, cfg.n_codebooks) if cfg.n_codebooks > 1 else (2, hi)
+    toks = rng.integers(0, cfg.vocab_size, shape)
     return {"tokens": torch.from_numpy(toks[:, lo:hi])}
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen2-vl-2b",
-                                  "qwen3-moe-235b-a22b", "arctic-480b"])
+@pytest.mark.parametrize("arch", [
+    "minicpm3-4b", "qwen2-vl-2b", "qwen3-moe-235b-a22b", "arctic-480b",
+    # the archs chip_smoke.py serves at full width since ROADMAP A11, at
+    # their real head structures (tests/zoo_heads.py)
+    *(f"{a}:heads" for a in ZOO_HEAD_ARCHS)])
 def test_cuda_zoo_prefill_and_decode_match_host(sm90_device, arch):
-    """Reduced MLA, M-RoPE and MoE archs: a 40-token prefill through
-    ``impl="kernel"`` (fp32 cache) and 4 decode steps on the card and on
-    the host from the same host-made weights; logits and every cache
-    entry within 2e-3 (tests/test_serve.py's tolerance).  The prefill
-    launches the flash kernel once a layer, MLA never (its attention is
-    dense, as in the reference)."""
+    """Reduced MLA, M-RoPE and MoE archs, and the five archs of
+    ``ZOO_SERVE`` at their real head structures (GQA groups of 4, 12 and
+    7 at D 128 and 192, MHA over 4 codebooks, SSD at d_state 128): a
+    40-token prefill (64 for the head structures: two of mamba2's
+    32-token chunks) through ``impl="kernel"`` (fp32 cache) and 4 decode
+    steps on the card and on the host from the same host-made weights;
+    logits and every cache entry within 2e-3 (tests/test_serve.py's
+    tolerance).  The prefill launches the flash kernel once a layer of
+    attention (MLA never: its attention is dense, as in the reference),
+    the SSD kernel once a layer of SSM."""
     from repro_torch.serve.engine import prefill_with_cache
-    cfg = get_arch(arch).reduced()
+    name, _, heads = arch.partition(":")
+    cfg = (zoo_head_config(get_arch, name) if heads
+           else get_arch(name).reduced())
     host = TT.init_params(cfg, device="cpu", seed=4)
-    S, N = 40, 4
+    S, N = (64 if heads else 40), 4
     out = {}
     for name, params, dev in (("card", _to(host, sm90_device), sm90_device),
                               ("host", host, "cpu")):
         before = tfa.LAUNCHES["flash_attention"].count
+        scans = tssd.LAUNCHES["ssd_chunk_scan"].count
         with torch.inference_mode():
             inp = {k: v.to(dev) for k, v in _zoo_inputs(cfg, 0, S).items()}
             logits, cache = prefill_with_cache(
@@ -806,11 +821,14 @@ def test_cuda_zoo_prefill_and_decode_match_host(sm90_device, arch):
                 step, cache = TT.decode_step(params, cfg, cache,
                                              {**inp, "length": S + i})
                 rows.append(step)
-        launches = tfa.LAUNCHES["flash_attention"].count - before
+        launches = (tfa.LAUNCHES["flash_attention"].count - before,
+                    tssd.LAUNCHES["ssd_chunk_scan"].count - scans)
         out[name] = ([r.cpu() for r in rows],
                      {k: v.cpu() for k, v in cache.items()}, launches)
-    assert out["card"][2] == (0 if cfg.attn_kind == "mla" else cfg.n_layers)
-    assert out["host"][2] == 0
+    assert out["card"][2] == (
+        cfg.n_layers if cfg.attn_kind in ("gqa", "hybrid") else 0,
+        cfg.n_layers if cfg.attn_kind in ("none", "hybrid") else 0)
+    assert out["host"][2] == (0, 0)
     for a, b in zip(out["card"][0], out["host"][0]):
         torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-3)
     for key, b in out["host"][1].items():
