@@ -78,6 +78,16 @@ with 1 of its 35 (56/8, 128 experts top-2 beside a dense FFN).  The
 calibrator's phase also runs the drift tool
 (``repro_torch.tools.calibration_drift``) for k-means on the card.
 
+Every phase that serves (``serve``, ``lm_example``, ``serve_mla``,
+``vlm_mrope``, ``serve_moe`` and the five) decodes through
+``serve.make_decode_fn``'s CUDA graph, one a batch shape, and holds every
+step against the eager ``decode_step`` on a copy of the same cache
+(logits bit for bit, or within 1e-5 of their scale, and tokens equal;
+:class:`CheckedDecode`): it reports each wave's eager and graph ms a
+step, the capture's ms and the graph's nodes, and for hymba-1.5b and
+mamba2-130m a ``torch.profiler`` trace of 8 eager and 8 graph steps
+(``decode_trace``: idle share, kernels a step).
+
 Each phase prints one JSON line; the card's ``nvidia-smi`` name and power
 limit, then a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line come last.  Any failure raises and
@@ -213,6 +223,11 @@ SERVE_MAX_LEN = 4128
 # a near-tie of the plain run's top two logits
 MODEL_TOL = 2e-3
 NEAR_TIE = 1e-4
+# the decode graph against the eager step on the same cache: bit for bit,
+# or logits within this share of their largest magnitude, tokens equal
+GRAPH_REL_TOL = 1e-5
+TRACE_ARCHS = ("hymba-1.5b", "mamba2-130m")
+TRACE_STEPS = 8
 # training: internlm2-1.8b at full width and depth, fp32, 8 steps
 TRAIN_ARCH = "internlm2-1.8b"
 TRAIN_BATCH = 4
@@ -807,17 +822,196 @@ def _top2(torch, logits, vocab):
     return torch.topk(logits[..., :vocab].float(), 2, dim=-1).values.cpu()
 
 
+class CheckedDecode:
+    """A decode function of ``serve.make_decode_fn`` (its CUDA graph on
+    the card) held at every step against the eager ``decode_step`` on a
+    copy of the same cache and the same inputs: logits bit for bit, or
+    within ``GRAPH_REL_TOL`` of their largest magnitude, and the greedy
+    tokens (every codebook's) equal; raises otherwise, and when a step on
+    the card went through no graph.
+
+    Records, for each wave (a call with another cache than the last one
+    returned), the graph's and the eager step's ms (host clock between
+    synchronisations; the step that captured, which also ran the warm-up
+    step, is counted in ``capture_ms`` and not in ``graph_ms``), the
+    graph's nodes and kernel nodes, and the steps that agreed bit for
+    bit."""
+
+    def __init__(self, torch, T, cfg, decode):
+        self.torch, self.T, self.cfg, self.decode = torch, T, cfg, decode
+        self.waves = []
+        self._cache = None
+
+    @property
+    def graphs(self):
+        return self.decode.graphs
+
+    @property
+    def last(self):
+        return self.decode.last
+
+    def __call__(self, params, cache, inputs):
+        torch = self.torch
+        if cache is not self._cache:
+            self.waves.append({"graph_ms": [], "eager_ms": [],
+                               "capture_ms": 0.0, "steps": 0, "bitwise": 0,
+                               "max_rel_err": 0.0})
+        w = self.waves[-1]
+        ref = {k: v.clone() for k, v in cache.items()}
+        n_graphs = len(self.decode.graphs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, out = self.decode(params, cache, inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            want, _ = self.T.decode_step(params, self.cfg, ref, inputs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        g = self.decode.last
+        if g is None:
+            raise AssertionError("a decode step on the card went through "
+                                 "no graph")
+        if len(self.decode.graphs) > n_graphs:
+            w["capture_ms"] = g.capture_s * 1e3
+        else:
+            w["graph_ms"].append((t1 - t0) * 1e3)
+        w["eager_ms"].append((t2 - t1) * 1e3)
+        w["nodes"], w["kernels"] = g.nodes, g.kernels
+        w["steps"] += 1
+        if torch.equal(logits, want):
+            w["bitwise"] += 1
+        else:
+            scale = float(want.float().abs().max())
+            err = float((logits.float() - want.float()).abs().max())
+            w["max_rel_err"] = max(w["max_rel_err"], err / scale)
+            if not err <= GRAPH_REL_TOL * scale:
+                raise AssertionError(f"decode graph vs eager: logits differ "
+                                     f"by {err} of {scale}")
+        vocab = self.cfg.vocab_size
+        if not torch.equal(logits[..., :vocab].argmax(-1),
+                           want[..., :vocab].argmax(-1)):
+            raise AssertionError("decode graph vs eager: tokens differ")
+        self._cache = out
+        return logits, out
+
+
+def graph_rows(waves, read_ms=None):
+    """One row a wave of :class:`CheckedDecode`'s ``waves``; with
+    ``read_ms`` (the step's weight read at the card's memory rate), each
+    step's time over it."""
+    rows = []
+    for w in waves:
+        row = dict(graph_ms=(statistics.mean(w["graph_ms"])
+                                 if w["graph_ms"] else None),
+                       eager_ms=statistics.mean(w["eager_ms"]),
+                       capture_ms=w["capture_ms"], nodes=w["nodes"],
+                       kernel_nodes=w["kernels"], steps=w["steps"],
+                       bitwise_steps=w["bitwise"],
+                       max_rel_err=w["max_rel_err"])
+        if read_ms:
+            row["weight_read_ms"] = read_ms
+            row["eager_over_read"] = row["eager_ms"] / read_ms
+            if row["graph_ms"] is not None:
+                row["graph_over_read"] = row["graph_ms"] / read_ms
+        rows.append(row)
+    return rows
+
+
+def trace_decode(torch, T, serve, params, cfg, device, prompt_len):
+    """One wave of ``SERVE_SLOTS`` prompts of ``prompt_len`` tokens
+    prefilled (bf16 cache), its graph captured, then ``TRACE_STEPS`` eager
+    steps (``decode_step`` on a copy of the cache) and ``TRACE_STEPS``
+    graph replays under ``torch.profiler``, each run inside one range that
+    ends in a synchronisation: its window, the device's busy time (the
+    union of its kernels and copies), idle share, and kernels a step.
+    Fields are None where the profiler saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    rng = np.random.default_rng(SEED + 9)
+    n = prompt_len + TRACE_STEPS + 2
+    shape = ((SERVE_SLOTS, n, cfg.n_codebooks) if cfg.n_codebooks > 1
+             else (SERVE_SLOTS, n))
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, shape)).to(
+        device)
+    prefill = serve.make_prefill_fn(cfg, n, impl="kernel")
+    decode = serve.make_decode_fn(cfg)
+
+    def step_inputs(i):
+        return {"tokens": toks[:, prompt_len + i:prompt_len + i + 1],
+                "length": torch.tensor(prompt_len + i, dtype=torch.int32,
+                                       device=device)}
+
+    with torch.inference_mode():
+        _, cache = prefill(params, {"tokens": toks[:, :prompt_len]})
+        _, cache = decode(params, cache, step_inputs(0))      # captures
+        eager = {k: v.clone() for k, v in cache.items()}
+        T.decode_step(params, cfg, eager, step_inputs(1))
+        _, cache = decode(params, cache, step_inputs(1))
+        torch.cuda.synchronize()
+        runs = {"eager": lambda i: T.decode_step(params, cfg, eager,
+                                                 step_inputs(i)),
+                "graph": lambda i: decode(params, cache, step_inputs(i))}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for name, run in runs.items():
+                with record_function(f"decode_{name}"):
+                    for i in range(2, 2 + TRACE_STEPS):
+                        run(i)
+                    torch.cuda.synchronize()
+    events = prof.events()
+    # the ranges' own device-side annotations span them whole
+    device_events = [e for e in events if e.device_type == DeviceType.CUDA
+                     and e.name not in {f"decode_{n}" for n in runs}]
+    out = {"steps": TRACE_STEPS, "device_events": len(device_events),
+           "graph_nodes": decode.last.nodes,
+           "graph_kernel_nodes": decode.last.kernels}
+    for name in runs:
+        rng_ = next(e.time_range for e in events
+                    if e.name == f"decode_{name}"
+                    and e.device_type == DeviceType.CPU)
+        lo, hi = rng_.start, rng_.end
+        spans = sorted((max(e.time_range.start, lo), min(e.time_range.end,
+                                                          hi))
+                       for e in device_events
+                       if e.time_range.start < hi and e.time_range.end > lo)
+        busy, end = 0.0, lo
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        kernels = sum(1 for e in device_events
+                      if lo <= e.time_range.start < hi
+                      and not e.name.startswith(("Memcpy", "Memset")))
+        seen = bool(spans)
+        out[name] = {"window_ms": (hi - lo) / 1e3,
+                     "ms_per_step": (hi - lo) / 1e3 / TRACE_STEPS,
+                     "busy_ms": busy / 1e3 if seen else None,
+                     "idle_share": 1.0 - busy / (hi - lo) if seen else None,
+                     "kernels_per_step": (kernels / TRACE_STEPS if seen
+                                          else None)}
+    del cache, eager, decode
+    return out
+
+
 def run_server(torch, serve, params, cfg, device, impl, prompts,
-               max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW_TOKENS):
+               max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW_TOKENS,
+               check=True):
     """Both waves through a fresh ``BatchServer``, capturing each wave's
     last-position prefill logits (every codebook's), its prefill cache,
     the two largest logits of every greedy token, and the first request's
     logits at every step (codebook 0's, which the server samples, where
-    there are several)."""
+    there are several), cloned from the decode graph's static buffer.
+    With ``check``, every decode step is held against the eager step
+    (:class:`CheckedDecode`, kept as ``server.checked``)."""
+    from repro_torch.models import transformer as T
     server = serve.BatchServer(params, cfg, n_slots=SERVE_SLOTS,
                                max_len=max_len, impl=impl, device=device)
     captured = []
     prefill, decode = server._prefill1, server._decode
+    server.checked = CheckedDecode(torch, T, cfg, decode) if check else None
+    if check:
+        decode = server.checked
     sampled = ((lambda t: t) if cfg.n_codebooks == 1
                else (lambda t: t[:, 0]))
 
@@ -860,11 +1054,14 @@ def check_served(done, n_requests, cfg, new_tokens):
     return n_tok
 
 
-def serve_stats(torch, server, done, n_tok, wall, device):
+def serve_stats(torch, server, done, n_tok, wall, device, read_ms=None):
     """The serving metrics of one ``run_server`` run, as ``serve``
-    reports them."""
+    reports them.  A checked run's wall time and tokens/s include the
+    eager check of every step; its ``decode_ms_per_step`` is the graph's
+    step (:class:`CheckedDecode`), and ``decode_graph`` has each wave's
+    row."""
     first = np.array([r.t_first_token - r.t_submit for r in done])
-    return dict(
+    out = dict(
         requests=len(done), tokens=n_tok, wall_s=wall,
         tokens_per_s=n_tok / wall,
         first_token_ms_mean=float(first.mean() * 1e3),
@@ -875,6 +1072,14 @@ def serve_stats(torch, server, done, n_tok, wall, device):
         waves=[[w["batch"], w["prompt_len"]] for w in server.waves],
         max_memory_allocated_gb=torch.cuda.max_memory_allocated(device)
         / 1e9)
+    if server.checked is not None:
+        rows = graph_rows(server.checked.waves, read_ms)
+        out["decode_graph"] = rows
+        out["decode_ms_per_step"] = [r["graph_ms"] for r in rows]
+        out["eager_decode_ms_per_step"] = [r["eager_ms"] for r in rows]
+        out["graph_capture_ms"] = [w["graph_capture_s"] * 1e3
+                                   for w in server.waves]
+    return out
 
 
 def serve_hymba(torch, serve, T, fa, ssd, device):
@@ -893,7 +1098,7 @@ def serve_hymba(torch, serve, T, fa, ssd, device):
                for n in SERVE_WAVES for _ in range(SERVE_SLOTS)]
     # warm the libraries (cuBLAS handles, allocator) on a short wave
     run_server(torch, serve, params, cfg, device, "kernel",
-               [prompts[0][:64]])
+               [prompts[0][:64]], check=False)
     counters = [fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_chunk_scan"]]
     torch.cuda.reset_peak_memory_stats(device)
     for c in counters:
@@ -906,16 +1111,24 @@ def serve_hymba(torch, serve, T, fa, ssd, device):
     if launches != {"flash_attention": want, "ssd_chunk_scan": want}:
         raise AssertionError(f"serve launches {launches}, expected {want} "
                              f"of each (waves x layers)")
+    read_ms = (decode_weight_bytes(cfg, params, SERVE_SLOTS)
+               / HBM_BYTES_PER_S * 1e3)
     stats = serve_stats(torch, server, done,
                         check_served(done, len(prompts), cfg,
-                                     SERVE_NEW_TOKENS), wall, device)
+                                     SERVE_NEW_TOKENS), wall, device,
+                        read_ms)
+    del server
     for w in captured:
         if not bool(torch.isfinite(w["logits"]).all()) or not all(
                 bool(torch.isfinite(v.float()).all())
                 for v in w["cache"].values()):
             raise AssertionError("non-finite prefill logits or cache")
     emit("serve", arch=SERVE_ARCH, params=n_params, init_s=init_s, **stats,
-         launches=launches)
+         launches=launches, decode_weight_read_ms=read_ms)
+    emit("decode_trace", arch=SERVE_ARCH, batch=SERVE_SLOTS,
+         prompt=SERVE_WAVES[0], weight_read_ms=read_ms,
+         **trace_decode(torch, T, serve, params, cfg, device,
+                        SERVE_WAVES[0]))
     return params, cfg, prompts, done, captured, launches
 
 
@@ -929,7 +1142,8 @@ def serve_vs_plain(torch, serve, fa, ssd, params, cfg, prompts, done,
     f0 = fa.LAUNCHES["flash_attention"].count
     s0 = ssd.LAUNCHES["ssd_chunk_scan"].count
     _, done_p, captured_p, wall = run_server(torch, serve, params, cfg,
-                                             device, "dense", prompts)
+                                             device, "dense", prompts,
+                                             check=False)
     if (fa.LAUNCHES["flash_attention"].count != f0
             or ssd.LAUNCHES["ssd_chunk_scan"].count != s0):
         raise AssertionError("the dense path launched a kernel")
@@ -2333,11 +2547,20 @@ def lm_example(torch, fa, device):
     checkpoints, publish and fetch through the parameter service, then 8
     requests served through ``BatchServer``, whose GQA prefill goes
     through the flash-attention kernel (its launch count set to 0 just
-    before and read just after).  Every launch's inputs and output are
-    kept, and each output is held against the plain version on the same
-    inputs at the flash checks' fp32 tolerance (:func:`flash_tol`)."""
+    before and read just after), and whose decode graph is held against
+    the eager step at every step (:class:`CheckedDecode`, put in through
+    ``serve.engine.make_decode_fn``).  Every launch's inputs and output
+    are kept, and each output is held against the plain version on the
+    same inputs at the flash checks' fp32 tolerance (:func:`flash_tol`)."""
     from repro_torch.examples import train_and_serve_lm as lm
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
     launch, seen = fa.launch, []
+    make_decode, made = engine.make_decode_fn, []
+
+    def checked_make(cfg):
+        made.append(CheckedDecode(torch, T, cfg, make_decode(cfg)))
+        return made[-1]
 
     def kept_launch(q, k, v, *, causal=True, window=None):
         out = launch(q, k, v, causal=causal, window=window)
@@ -2347,14 +2570,18 @@ def lm_example(torch, fa, device):
 
     for counter in fa.LAUNCHES.values():
         counter.reset()
-    fa.launch = kept_launch
+    fa.launch, engine.make_decode_fn = kept_launch, checked_make
     try:
         t0 = time.perf_counter()
         out = lm.main(device=device, params_m=100, steps=LM_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        fa.launch = launch
+        fa.launch, engine.make_decode_fn = launch, make_decode
+    if len(made) != 1 or not made[0].waves:
+        raise AssertionError(f"the LM example's server made {len(made)} "
+                             f"decode functions")
+    graph = graph_rows(made.pop().waves)
     launches = {name: c.count for name, c in fa.LAUNCHES.items()}
     worst, shapes = 0.0, set()
     for q, k, v, causal, window, got in seen:
@@ -2385,8 +2612,9 @@ def lm_example(torch, fa, device):
          tok_per_s=hist[-1]["tok_per_s"], version=out["version"],
          served=out["served"], tokens=out["tokens"], waves=waves,
          prefill_ms=[w["prefill_s"] * 1e3 for w in out["waves"]],
-         decode_ms_mean=[1e3 * statistics.mean(w["decode_s"])
-                         for w in out["waves"]],
+         decode_ms_mean=[r["graph_ms"] for r in graph],
+         eager_decode_ms_mean=[r["eager_ms"] for r in graph],
+         decode_graph=graph,
          wall_s=wall, launches=launches,
          flash_checked_vs_plain=launches["flash_attention"],
          flash_max_abs_err=worst,
@@ -2417,7 +2645,8 @@ def serve_mla(torch, serve, T, fa, device):
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in MLA_WAVES for _ in range(SERVE_SLOTS)]
     run_server(torch, serve, params, cfg, device, "kernel",
-               [prompts[0][:64]], max_len=max_len, new_tokens=2)
+               [prompts[0][:64]], max_len=max_len, new_tokens=2,
+               check=False)
     counter = fa.LAUNCHES["flash_attention"]
     torch.cuda.reset_peak_memory_stats(device)
     counter.reset()
@@ -2425,9 +2654,12 @@ def serve_mla(torch, serve, T, fa, device):
         torch, serve, params, cfg, device, "kernel", prompts,
         max_len=max_len, new_tokens=ZOO_NEW_TOKENS)
     launches = {"flash_attention": counter.count}
+    read_ms = (decode_weight_bytes(cfg, params, SERVE_SLOTS)
+               / HBM_BYTES_PER_S * 1e3)
     stats = serve_stats(torch, server, done,
                         check_served(done, len(prompts), cfg,
-                                     ZOO_NEW_TOKENS), wall, device)
+                                     ZOO_NEW_TOKENS), wall, device, read_ms)
+    del server
     if launches["flash_attention"] != 0:
         raise AssertionError(f"MLA launched the flash kernel: {launches}")
 
@@ -2455,6 +2687,7 @@ def serve_mla(torch, serve, T, fa, device):
     emit("serve_mla", arch=MLA_ARCH, layers=cfg.n_layers,
          d_model=cfg.d_model, params=T.param_count(params), init_s=init_s,
          cache="bf16", **stats, launches=launches,
+         decode_weight_read_ms=read_ms,
          flash_zero_because="the reference's mla_forward runs dense "
          "attention for every impl but chunked; the flash kernel never "
          "sees MLA's 96-wide q/k and 64-wide v",
@@ -2529,11 +2762,15 @@ def vlm_mrope(torch, T, fa, device):
     """qwen2-vl-2b at full width and depth (28 layers × 1,536, random fp32
     weights): 4 sequences of a 16 × 16 grid of patch embeddings and 768
     text positions (embeddings drawn from the seed), through
-    ``prefill_with_cache(impl="kernel")`` (bf16 cache) and 16
-    ``decode_step``s with (3, B, 1) positions; the flash launch count set
-    to 0 just before and read just after (exactly one a layer).  The same
-    run at ``impl="dense"``: prefill and decode logits within 2e-3 of the
-    largest magnitude; both runs' greedy tokens reported."""
+    ``prefill_with_cache(impl="kernel")`` (bf16 cache) and 16 decode steps
+    with (3, B, 1) positions through ``make_decode_fn``'s graph, each held
+    against the eager step (:class:`CheckedDecode`); the flash launch
+    count set to 0 just before and read just after (exactly one a layer).
+    The same run at ``impl="dense"``: prefill and decode logits within
+    2e-3 of the largest magnitude; both runs' greedy tokens reported.  All
+    three runs (warm-up, kernel, dense) replay the one graph the warm-up
+    captured."""
+    import repro_torch.serve as serve
     from repro_torch.configs import get_arch
     from repro_torch.serve.engine import prefill_with_cache
     cfg = get_arch(VLM_ARCH)
@@ -2549,6 +2786,7 @@ def vlm_mrope(torch, T, fa, device):
     positions = torch.from_numpy(vlm_positions(VLM_TEXT + steps, b)).to(
         device)
     vocab = cfg.vocab_size
+    decode = CheckedDecode(torch, T, cfg, serve.make_decode_fn(cfg))
 
     def run(impl):
         torch.cuda.synchronize()
@@ -2563,13 +2801,14 @@ def vlm_mrope(torch, T, fa, device):
             rows, decode_s = [logits[:, -1].float()], []
             for i in range(steps):
                 t = time.perf_counter()
-                out, cache = T.decode_step(params, cfg, cache, {
+                out, cache = decode(params, cache, {
                     "embeds": embeds[:, s + i:s + i + 1],
                     "positions": positions[:, :, s + i:s + i + 1],
-                    "length": s + i})
+                    "length": torch.tensor(s + i, dtype=torch.int32,
+                                           device=device)})
                 tokens.append(torch.argmax(out[:, 0, :vocab], -1).cpu())
                 decode_s.append(time.perf_counter() - t)
-                rows.append(out[:, 0].float())
+                rows.append(out[:, 0].float().clone())  # the graph's buffer
         return (logits, torch.stack(rows, 1), torch.stack(tokens, 1),
                 prefill_s, decode_s)
 
@@ -2597,6 +2836,9 @@ def vlm_mrope(torch, T, fa, device):
             raise AssertionError(f"qwen2-vl kernel vs dense {key} logits: "
                                  f"{diff} > {MODEL_TOL} × {scale}")
     wall = prefill_s + sum(decode_s)
+    read_ms = decode_weight_bytes(cfg, params, b) / HBM_BYTES_PER_S * 1e3
+    graph = graph_rows(decode.waves, read_ms)
+    del decode
     emit("vlm_mrope", arch=VLM_ARCH, layers=cfg.n_layers,
          d_model=cfg.d_model, params=T.param_count(params), init_s=init_s,
          batch=b, seq=s, image_grid=[VLM_GRID, VLM_GRID], text=VLM_TEXT,
@@ -2605,7 +2847,10 @@ def vlm_mrope(torch, T, fa, device):
          first_token_ms_mean=prefill_s * 1e3,
          first_token_ms_p95=prefill_s * 1e3, prefill_ms=prefill_s * 1e3,
          prefill_ms_dense=plain_prefill_s * 1e3,
-         decode_ms_per_step=float(np.mean(decode_s) * 1e3),
+         decode_ms_per_step=graph[1]["graph_ms"],
+         eager_decode_ms_per_step=graph[1]["eager_ms"],
+         decode_weight_read_ms=read_ms,
+         decode_graph=graph, decode_graph_runs=["warm-up", "kernel", "dense"],
          max_memory_allocated_gb=peak_gb, kernel_vs_dense=errs,
          tol_of_scale=MODEL_TOL, greedy_tokens=tokens.tolist(),
          greedy_tokens_dense=plain_tokens.tolist(),
@@ -2675,8 +2920,11 @@ def serve_plan(torch, T, cfg, waves, slots=SERVE_SLOTS,
     """The reckoned device memory of a :func:`serve_zoo` phase in bytes,
     from shapes alone: the fp32 weights counted on ``meta``; the cache at
     ``max(waves) + new_tokens`` positions, held live, once more while the
-    prefill stacks its layers, and cloned for each wave of both runs by
-    :func:`run_server`; the widest wave's fp32 logits at every position
+    prefill stacks its layers, once more as the decode graph's static
+    cache (live from the first wave on; the eager check's copy of it is
+    made in decode steps, where the prefill's transients are gone), and
+    cloned for each wave of both runs by :func:`run_server`; the widest
+    wave's fp32 logits at every position
     (the prefill computes them all, the server keeps the last); and the
     larger of the dense path's transients, its fp32 scores twice (each
     step of ``attention_dense`` makes a new tensor) or three FFN-wide fp32
@@ -2695,8 +2943,9 @@ def serve_plan(torch, T, cfg, waves, slots=SERVE_SLOTS,
                     3 * 4 * slots * s * width)
     captured = 2 * len(waves) * cache
     return {"params": params, "cache": cache, "captured_caches": captured,
-            "logits": logits, "transient": transient,
-            "peak": params + captured + 2 * cache + logits + transient}
+            "graph_static_cache": cache, "logits": logits,
+            "transient": transient,
+            "peak": params + captured + 3 * cache + logits + transient}
 
 
 def tree_bytes(tree) -> int:
@@ -2780,15 +3029,21 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in waves for _ in range(SERVE_SLOTS)]
     run_server(torch, serve, params, cfg, device, "kernel",
-               [prompts[0][:64]], max_len=max_len, new_tokens=2)
+               [prompts[0][:64]], max_len=max_len, new_tokens=2,
+               check=False)
 
     route, forward = L.moe_route, L.moe_forward
     routes, drops, decode_ids = [], [], []
 
     def kept_route(p, xf, top_k):
         out = route(p, xf, top_k)
-        (routes if xf.shape[-2] > SERVE_SLOTS else decode_ids).append(
-            out[3])
+        if xf.shape[-2] > SERVE_SLOTS:
+            routes.append(out[3])
+        elif torch.cuda.current_stream() == torch.cuda.default_stream():
+            # the eager check's steps: the graph's warm-up step and its
+            # capture run on its side stream, and its replays run no
+            # Python
+            decode_ids.append(out[3])
         return out
 
     def kept_forward(p, x, cfg, **kw):
@@ -2829,9 +3084,11 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
                                  f"cache")
 
     torch.cuda.reset_peak_memory_stats(device)
+    graph_waves = server.checked.waves
+    del server
     _, done_p, captured_p, wall_p = run_server(
         torch, serve, params, cfg, device, "dense", prompts,
-        max_len=max_len, new_tokens=ZOO_NEW_TOKENS)
+        max_len=max_len, new_tokens=ZOO_NEW_TOKENS, check=False)
     peaks["dense"] = torch.cuda.max_memory_allocated(device)
     if {name: c.count for name, c in counters.items()} != want:
         raise AssertionError(f"{arch}: the dense path launched a kernel")
@@ -2866,6 +3123,11 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
     weights = decode_weight_bytes(cfg, params, SERVE_SLOTS, experts)
     cache = cache_bytes(cfg, SERVE_SLOTS, max(waves))
     read_ms = weights / HBM_BYTES_PER_S * 1e3
+    stats["decode_graph"] = graph_rows(graph_waves, read_ms)
+    if arch in TRACE_ARCHS:
+        emit("decode_trace", arch=arch, batch=SERVE_SLOTS, prompt=waves[0],
+             weight_read_ms=read_ms,
+             **trace_decode(torch, T, serve, params, cfg, device, waves[0]))
     return dict(
         arch=arch, layers=layers,
         reduced=(f"n_layers {full.n_layers} -> {layers}"
@@ -2883,6 +3145,8 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
         decode_weight_read_ms=read_ms,
         decode_bound_ms=(weights + cache) / HBM_BYTES_PER_S * 1e3,
         decode_over_weight_read=stats["decode_ms_per_step"][-1] / read_ms,
+        eager_decode_over_weight_read=(stats["eager_decode_ms_per_step"][-1]
+                                       / read_ms),
         **moe)
 
 

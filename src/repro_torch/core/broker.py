@@ -561,6 +561,33 @@ class ConsumerGroup:
         # fire on_truncate callbacks into downstream bookkeeping
         self.topic.maybe_truncate(msg.partition)
 
+    def commit_reserved(self, msg: Message, reserved: set) -> None:
+        """Commit past a duplicate ``msg`` only while its id is still in
+        ``reserved`` (its stage's dedup set).  The check and the commit
+        are one step under the group lock, so neither can fall between
+        the release and the :meth:`redeliver` of a holder that failed."""
+        with self._lock:
+            if msg.msg_id not in reserved:
+                return
+            self.committed[msg.partition] = max(
+                self.committed[msg.partition], msg.offset + 1)
+        self.topic.maybe_truncate(msg.partition)
+
+    def redeliver(self, msg: Message) -> bool:
+        """Give back ``msg`` after a failed attempt.  Its offset is
+        normally still uncommitted, and the next poll returns it.  But a
+        consumer that met it as a duplicate while it was in flight (a
+        rebalance hands its partition on) may have committed past it: then
+        it is appended to its partition once more, same id, visible now,
+        so that it is not lost.  Returns whether it was appended."""
+        with self._lock:
+            passed = self.committed[msg.partition] > msg.offset
+        if passed:
+            self.topic.inject(msg.raw, msg_id=msg.msg_id,
+                              partition=msg.partition,
+                              ready_at=self._clock.now(), key=msg.key)
+        return passed
+
     def lag(self) -> int:
         ends = self.topic.end_offsets()
         with self._lock:

@@ -514,7 +514,7 @@ class ContinuumPipeline:
                 dup = msg.msg_id in seen
                 seen.add(msg.msg_id)               # reserve
             if dup:
-                commit(msg)
+                group.commit_reserved(msg, seen)
                 metrics.incr("pipeline.duplicates_dropped")
                 continue
             inflight_key = (stage_idx, cid, ctx.attempt)
@@ -526,12 +526,16 @@ class ContinuumPipeline:
                 svc.payload = None
                 fn = self._fn(stage_name)
                 out = fn(ctx, data=data)
-            except BaseException:
+            except BaseException as exc:
                 # release the dedup reservation so the redelivery (from
                 # this task's retry or a rebalance) is processed, then let
                 # the strategy's retry machinery handle the failure.
                 with state.lock:
                     seen.discard(msg.msg_id)
+                if not isinstance(exc, GeneratorExit):
+                    # a consumer that dropped it as a duplicate meanwhile
+                    # may have committed past it
+                    group.redeliver(msg)
                 inflight.pop(inflight_key, None)
                 raise
             # hop identity: forwarded messages carry the originating

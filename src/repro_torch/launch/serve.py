@@ -7,7 +7,9 @@ Instantiates a (reduced or full) model with random fp32 parameters from
 ``--seed`` on ``--device`` (``cuda:0`` by default; ``--device cpu`` runs
 the kernels' plain versions on the host), spins up the slot-based
 :class:`BatchServer`, pushes a stream of synthetic requests through it and
-reports latency/throughput — the serving-side end-to-end example.
+reports latency/throughput — the serving-side end-to-end example.  On the
+card the server decodes through one captured CUDA graph a batch shape;
+the launcher prints each capture's time and the graph's size once.
 """
 from __future__ import annotations
 
@@ -73,6 +75,9 @@ def main(argv=None):
               f"p95 {np.percentile(lat_first, 95)*1e3:.1f} ms")
         print(f"request latency:     mean {np.mean(lat_total)*1e3:.1f} ms, "
               f"p95 {np.percentile(lat_total, 95)*1e3:.1f} ms")
+    for g in server.decode_fn.graphs.values():
+        print(f"decode graph: captured in {g.capture_s * 1e3:.1f} ms, "
+              f"{g.nodes} nodes ({g.kernels} kernels)")
     return 0
 
 

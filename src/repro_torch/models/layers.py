@@ -187,14 +187,20 @@ def _gathered(t, dim: int):
                    and pl.dim % t.ndim == dim % t.ndim else pl)
 
 
-def write_slot(cache, idx: int, value) -> None:
+def write_slot(cache, idx, value) -> None:
     """``cache[:, idx] = value`` in ``cache``'s type, in place: (B, S,
-    ...) caches, (B, ...) values.  A ``DTensor`` cache whose sequence
+    ...) caches, (B, ...) values.  ``idx`` is an int or a 0-d tensor on
+    the cache's device, written with ``index_copy_`` (a 0-d tensor index
+    reads its value on the host).  A ``DTensor`` cache whose sequence
     dim is sharded (context-parallel decode) is written by the rank that
     holds slot ``idx``, in its own shard: DTensor's ``setitem`` would
     gather the whole cache first."""
     if not is_dtensor(cache):
-        cache[:, idx] = value.to(cache.dtype)
+        if torch.is_tensor(idx):
+            cache.index_copy_(1, idx.reshape(1).long(),
+                              value[:, None].to(cache.dtype))
+        else:
+            cache[:, idx] = value.to(cache.dtype)
         return
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import \
@@ -433,9 +439,10 @@ def attention_chunked(q, k, v, *, causal=True, window=None,
                      pv_type=v.dtype)
 
 
-def attention_decode(q, k_cache, v_cache, valid_len: int):
+def attention_decode(q, k_cache, v_cache, valid_len):
     """Single-token decode. q (B,1,H,D); caches (B,Smax,Hkv,D); valid_len =
-    number of valid cache entries (the new token is already written).
+    number of valid cache entries (the new token is already written), an
+    int or a 0-d tensor on the device.
 
     GQA is computed grouped, q (B,1,Hkv,rep,D) against the raw cache.  As
     in the reference, the scores are fp32 (the cache is upcast) and the
@@ -498,11 +505,12 @@ def gqa_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
     return merge_heads(o, b, s, h * hd) @ p["wo"], (k, v)
 
 
-def gqa_decode(p, x, cache_k, cache_v, write_idx: int, valid_len: int, cos,
-               sin, cfg: ArchConfig):
+def gqa_decode(p, x, cache_k, cache_v, write_idx, valid_len, cos, sin,
+               cfg: ArchConfig):
     """x (B,1,D).  Writes the new kv at ``write_idx`` (== position, or
     position % window for ring buffers) into the caches **in place** and
-    attends over ``valid_len`` entries.  Returns (out, cache_k, cache_v)."""
+    attends over ``valid_len`` entries (ints, or 0-d tensors on the
+    device).  Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = heads(x @ p["wq"], b, 1, h, hd)
@@ -589,14 +597,15 @@ def mla_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
             (c_kv, k_rope))
 
 
-def mla_decode(p, x, cache_ckv, cache_krope, length: int, cos, sin,
+def mla_decode(p, x, cache_ckv, cache_krope, length, cos, sin,
                cfg: ArchConfig):
     """Absorbed-matmul MLA decode: attention runs in the latent space, so
     the cache stays compressed, (B,Smax,kv_lora) + (B,Smax,rope) only.
 
-    x (B,1,D).  Writes the new latents at ``length`` into the caches **in
-    place** (no ring; ``length < Smax``: torch indexing raises where the
-    reference's ``dynamic_update_slice`` clamps) and attends over
+    x (B,1,D).  Writes the new latents at ``length`` (an int or a 0-d
+    tensor on the device) into the caches **in place** (no ring;
+    ``length < Smax``: torch indexing raises where the reference's
+    ``dynamic_update_slice`` clamps) and attends over
     ``length + 1`` entries.  As in the reference, the scores are fp32, the
     softmax is cast to the cache's type before its product with ``c_kv``
     (a bf16 cache gives a bf16 ``o_lat``), and ``o_lat`` is then widened
@@ -684,13 +693,21 @@ def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)          # round up to multiple of 8
 
 
+def _one_hot(ids, n: int):
+    """``F.one_hot(ids, n)`` as int32, written as a comparison: the same
+    integers, without the range check that reads ``ids`` on the host on
+    the CPU."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(
+        torch.int32)
+
+
 def _dispatch_positions(flat_ids, n_experts: int):
     """Position of each (token, slot) within its expert's arrival order:
     the reference's cumsum over a one-hot, in integers (its fp32 cumsum is
     exact at these counts, so the positions are the same).
 
     flat_ids (..., N) int -> pos (..., N) int32."""
-    oh = F.one_hot(flat_ids.long(), n_experts).to(torch.int32)
+    oh = _one_hot(flat_ids, n_experts)
     csum = torch.cumsum(oh, dim=-2, dtype=torch.int32)        # inclusive
     pos = torch.gather(csum, -1, flat_ids.long()[..., None])[..., 0] - 1
     return pos.to(torch.int32)
@@ -773,7 +790,7 @@ def _moe_dispatch(router, x, cfg: ArchConfig, groups: int):
         buf.index_copy_(0, flat[:, :, j].reshape(-1), src)
     eb = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d)
     stats = (probs.mean((0, 1)),                             # (E,)
-             F.one_hot(ids[..., 0], e).float().mean((0, 1)),
+             _one_hot(ids[..., 0], e).float().mean((0, 1)),
              torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
              keep.float().mean())
     return eb, flat, gate, stats
@@ -1084,7 +1101,7 @@ def hybrid_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
     return y, kv
 
 
-def hybrid_decode(p, x, cache, write_idx: int, valid_len: int, cos, sin,
+def hybrid_decode(p, x, cache, write_idx, valid_len, cos, sin,
                   cfg: ArchConfig):
     """``cache`` holds this layer's k, v (updated in place), ssm and conv;
     returns (y, {"k", "v", "ssm", "conv"}) with the new ssm and conv

@@ -527,24 +527,29 @@ def _store(cache, name: str, layer: int, value) -> None:
     """Write one layer's new state into the stacked cache in place.  A
     state whose type is wider than the cache's (the fp32 conv window over
     a bf16 cache) widens the whole stacked entry once, as the reference's
-    scan outputs do."""
+    scan outputs do.  A captured step must not rebind an entry, so
+    ``serve.DecodeGraph`` refuses a cache that its first step widens."""
     if cache[name].dtype != value.dtype:
         cache[name] = cache[name].to(
             torch.promote_types(cache[name].dtype, value.dtype))
     cache[name][layer].copy_(value)
 
 
-def _ring(cfg: ArchConfig, size: int, length: int):
-    """(write_idx, valid_len) for full or ring-buffer caches."""
+def _ring(cfg: ArchConfig, size: int, length):
+    """(write_idx, valid_len) for full or ring-buffer caches: on the device
+    for a tensor ``length``, in Python for an int."""
     if cfg.sliding_window is not None:
+        if torch.is_tensor(length):
+            return length % size, torch.clamp_max(length + 1, size)
         return length % size, min(length + 1, size)
     return length, length + 1
 
 
-def block_decode(lp, x, cache, layer: int, length: int, cos, sin,
+def block_decode(lp, x, cache, layer: int, length, cos, sin,
                  cfg: ArchConfig, rules: Optional[ShardRules] = None):
     """One block of one decode step; updates ``cache`` (the stacked dict)
-    at ``layer`` in place.  Returns x."""
+    at ``layer`` in place.  ``length`` is an int or a 0-d tensor on the
+    cache's device.  Returns x."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "gqa":
         widx, valid = _ring(cfg, cache["k"].shape[2], length)
@@ -579,20 +584,27 @@ def block_decode(lp, x, cache, layer: int, length: int, cos, sin,
 @_dtensor_scoped
 def decode_step(params, cfg: ArchConfig, cache, inputs, *,
                 rules: Optional[ShardRules] = None):
-    """One serve step: new token at position ``inputs['length']`` (an int).
+    """One serve step: new token at position ``inputs['length']``.
 
     inputs: tokens (B,1) or (B,1,K) / embeds (B,1,D); positions (3,B,1)
-    for M-RoPE; length.  Returns (logits, cache) — the same cache dict,
-    updated in place."""
+    for M-RoPE; length, a 0-d integer tensor on the cache's device (the
+    reference's form) or a host int (the dry-run's).  With a tensor
+    nothing reads the position on the host, so every position runs the
+    same ops on the same shapes: the step a CUDA graph can capture
+    (``serve.make_decode_fn``).  Returns (logits, cache) — the same cache
+    dict, updated in place."""
     # the constraint is the identity on a plain tensor; a DTensor lookup
     # in a vocab-sharded table is reduced here, as forward's is
     x = _c(rules, _embed_inputs(params, cfg, inputs), *_act_spec(rules))
-    length = int(inputs["length"])
+    length = inputs["length"]
+    if not torch.is_tensor(length):
+        length = int(length)
     if cfg.pos_kind == "mrope":
         cos, sin = L.mrope_cos_sin(inputs["positions"], _rope_dim(cfg),
                                    cfg.rope_theta, cfg.mrope_sections)
     elif cfg.pos_kind == "rope":
-        pos = torch.tensor([length], device=x.device)
+        pos = (length.reshape(1) if torch.is_tensor(length)
+               else torch.tensor([length], device=x.device))
         cos, sin = L.rope_cos_sin(pos, _rope_dim(cfg), cfg.rope_theta)
         cos, sin = cos[None], sin[None]             # (1,1,hd/2)
     else:

@@ -23,14 +23,21 @@ and together they put both Hopper kernels on the serving path:
   the SSD chunk kernel.  Both scans compute the same function.
 
 On a CPU tensor ``"kernel"`` takes the kernels' plain versions.
+
+The decode step is the reference's static program: the position is a 0-d
+tensor on the device, so every step of every wave of a batch shape runs
+the same ops on the same shapes.  :func:`make_decode_fn` is the
+counterpart of the reference's ``jax.jit``: on the card it runs that step
+as one captured CUDA graph a batch shape (:class:`DecodeGraph`).
 """
 from __future__ import annotations
 
+import ctypes
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,11 +153,162 @@ def make_prefill_fn(cfg: ArchConfig, max_len: int, *, impl="dense",
     return prefill
 
 
-def make_decode_fn(cfg: ArchConfig):
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Tuple[int, int]:
+    """(nodes, kernel nodes) of a graph captured with ``keep_graph=True``,
+    read from its ``cudaGraph_t`` with ``libcuda``'s ``cuGraphGetNodes``."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(0), 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0                  # CU_GRAPH_NODE_TYPE_KERNEL
+    return n.value, kernels
+
+
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The one side stream on which every decode graph of ``dev`` warms up
+    and is captured.  cuBLAS keeps a workspace (32 MiB on an H100) for each
+    stream it has run on, for the life of the process: a stream a graph
+    would leave one behind with every server."""
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
+
+
+def _spec(tree) -> tuple:
+    return tuple((k, tuple(v.shape), v.dtype)
+                 for k, v in sorted(tree.items()))
+
+
+class DecodeGraph:
+    """One decode step captured as a CUDA graph, for one key: the params,
+    the cache's names, shapes and types, and the inputs'.  It owns static
+    buffers for the inputs (tokens, or embeds and M-RoPE positions), the
+    position, the cache and the logits.
+
+    Made by the first call of its key, which then calls :meth:`capture`:
+    the step runs eagerly on the static buffers on a side stream (the
+    warm-up of cuBLAS and the allocator on the capturing stream, and that
+    call's real step), then it is captured, which executes nothing; a
+    second warm-up step would advance the SSM states twice.  The first
+    call's cache becomes the static cache; a later call with another cache
+    (a new wave from the prefill) copies it in once.  A step that syncs
+    with the host, allocates what a graph cannot, or widens a cache entry
+    raises here: nothing falls back to eager decoding on the card."""
+
+    def __init__(self, params, cfg: ArchConfig, cache, inputs):
+        dev = next(iter(cache.values())).device
+        self.params = params            # the graph reads them where they lie
+        self.cfg = cfg
+        self.cache = dict(cache)
+        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                       for k, v in inputs.items()}
+        self._load(cache, inputs)
+
+    def capture(self, stream: "torch.cuda.Stream"):
+        """The first step, eagerly on ``stream``, then the capture there.
+        Returns the first step's logits."""
+        cache = dict(self.cache)
+        cur = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            first, _ = T.decode_step(self.params, self.cfg, self.cache,
+                                     self.inputs)
+        cur.wait_stream(stream)
+        first.record_stream(cur)
+        for name, t in cache.items():
+            if self.cache[name] is not t:
+                raise RuntimeError(
+                    f"the decode step widened cache {name!r} from {t.dtype} "
+                    f"to {self.cache[name].dtype}: a captured step needs the "
+                    f"cache in the types the prefill gives")
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.logits, _ = T.decode_step(self.params, self.cfg,
+                                               self.cache, self.inputs)
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:    # the error above invalidated it
+                    pass
+                raise
+            self.graph.capture_end()
+        self.graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
+        self.nodes, self.kernels = graph_nodes(self.graph)
+        return first
+
+    def _load(self, cache, inputs) -> None:
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v)
+        for name, t in cache.items():
+            if t is not self.cache[name]:
+                self.cache[name].copy_(t)
+
+    def replay(self, cache, inputs):
+        self._load(cache, inputs)
+        self.graph.replay()
+        return self.logits, self.cache
+
+
+class DecodeFn:
+    """:func:`make_decode_fn`'s result, ``decode(params, cache, inputs) ->
+    (logits, cache)``.  ``graphs`` maps each key to its
+    :class:`DecodeGraph`; ``last`` is the graph of the last call (None on
+    the host)."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        self.graphs: Dict[tuple, DecodeGraph] = {}
+        self.last: Optional[DecodeGraph] = None
+
     @torch.inference_mode()
-    def decode(params, cache, inputs):
-        return T.decode_step(params, cfg, cache, inputs)
-    return decode
+    def __call__(self, params, cache, inputs):
+        dev = next(iter(cache.values())).device
+        if dev.type != "cuda":
+            self.last = None
+            return T.decode_step(params, self.cfg, cache, inputs)
+        inputs = {k: torch.as_tensor(v) for k, v in inputs.items()}
+        # the graph holds ``params``, so their id stays theirs
+        key = (id(params), _spec(cache), _spec(inputs))
+        g = self.graphs.get(key)
+        if g is None:
+            g = DecodeGraph(params, self.cfg, cache, inputs)
+            first = g.capture(_capture_stream(dev))
+            self.graphs[key] = self.last = g
+            return first, g.cache
+        self.last = g
+        return g.replay(cache, inputs)
+
+
+def make_decode_fn(cfg: ArchConfig) -> DecodeFn:
+    """The counterpart of the reference's jitted decode,
+    ``decode(params, cache, inputs) -> (logits, cache)``.
+
+    On a CPU cache it runs :func:`transformer.decode_step` eagerly (the
+    plain version).  On the card it keeps one captured CUDA graph a key
+    (batch shape, cache shapes and types, input shapes), as jit's cache
+    does, and replays it: ``inputs["length"]`` is best a 0-d tensor on
+    the device, as the reference's server passes it.  The returned cache
+    is the graph's static cache: pass it back on the next step.  The
+    returned logits alias the graph's static output buffer, which the
+    next step overwrites: a caller who keeps them across steps must clone
+    them.  A capture that cannot be made raises."""
+    return DecodeFn(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +336,15 @@ class BatchServer:
     ``Request.temperature`` too).
 
     ``impl`` picks the prefill's attention and SSD scan (``"kernel"`` by
-    default: the Hopper kernels on the card).  ``waves`` records, for each
-    wave, its batch, prompt length, the seconds from the prefill call to
-    the first tokens on the host, and the seconds of each decode step
-    (each ends when its tokens reach the host)."""
+    default: the Hopper kernels on the card).  The decode step goes
+    through :func:`make_decode_fn` with the position as a device scalar,
+    as the reference's does: on the card, one CUDA graph a batch shape.
+    ``waves`` records, for each wave, its batch, prompt length, the
+    seconds from the prefill call to the first tokens on the host, the
+    seconds of each decode step (each ends when its tokens reach the
+    host), and on the card the seconds this wave spent capturing a graph
+    (0.0 where it replayed one made before) and that graph's nodes and
+    kernel nodes (None on the host)."""
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots: int = 4,
                  max_len: int = 512, impl: str = "kernel", device=None):
@@ -197,7 +360,8 @@ class BatchServer:
         self.max_len = max_len
         self.impl = impl
         self._prefill1 = make_prefill_fn(cfg, max_len, impl=impl)
-        self._decode = make_decode_fn(cfg)
+        self.decode_fn = make_decode_fn(cfg)
+        self._decode = self.decode_fn
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self.metrics: Dict[str, float] = {"decoded_tokens": 0,
                                           "completed": 0}
@@ -260,7 +424,8 @@ class BatchServer:
         next_tok = self._argmax(last)                 # waits for the card
         now = time.monotonic()
         stats = {"batch": b, "prompt_len": s_max, "prefill_s": now - t0,
-                 "decode_s": []}
+                 "decode_s": [], "graph_capture_s": None,
+                 "graph_nodes": None, "graph_kernels": None}
         self.waves.append(stats)
         del logits, last
         for i, r in enumerate(wave):
@@ -268,13 +433,21 @@ class BatchServer:
             r.result_tokens.append(int(next_tok[i]))
         length = s_max
         n_steps = max(r.max_new_tokens for r in wave)
+        graphs = len(self.decode_fn.graphs)
         for _ in range(n_steps - 1):
+            if length >= self.max_len and cfg.attn_kind != "none" and \
+                    cfg.sliding_window is None:
+                # torch raises where dynamic_update_slice clamps; under a
+                # graph that is a device assert, so check here
+                raise ValueError(f"position {length} past max_len "
+                                 f"{self.max_len}")
             t = next_tok[:, None].astype(np.int64)
             if cfg.n_codebooks > 1:
                 t = np.repeat(t[..., None], cfg.n_codebooks, axis=-1)
             t0 = time.monotonic()
             dinp = {"tokens": torch.from_numpy(t).to(self.device),
-                    "length": length}
+                    "length": torch.tensor(length, dtype=torch.int32,
+                                           device=self.device)}
             logits, cache = self._decode(self.params, cache, dinp)
             lg = logits[:, 0] if cfg.n_codebooks == 1 else logits[:, 0, 0]
             next_tok = self._argmax(lg)
@@ -284,6 +457,11 @@ class BatchServer:
             for i, r in enumerate(wave):
                 if len(r.result_tokens) < r.max_new_tokens:
                     r.result_tokens.append(int(next_tok[i]))
+        g = self.decode_fn.last
+        if g is not None and n_steps > 1:
+            stats["graph_capture_s"] = (g.capture_s if len(
+                self.decode_fn.graphs) > graphs else 0.0)
+            stats["graph_nodes"], stats["graph_kernels"] = g.nodes, g.kernels
         now = time.monotonic()
         for r in wave:
             r.t_done = now

@@ -856,3 +856,124 @@ def test_cuda_moe_train_step_matches_host(sm90_device):
         assert a.device.type == "cuda"
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=5e-5,
                                    rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the static-shape decode step as one CUDA graph a batch shape
+# ---------------------------------------------------------------------------
+
+# one reduced arch a family: GQA, ring + SSM (hybrid), MLA, SSM, MoE,
+# codebooks, M-RoPE over embeddings
+GRAPH_ARCHS = ["internlm2-1.8b", "hymba-1.5b", "minicpm3-4b", "mamba2-130m",
+               "qwen3-moe-235b-a22b", "musicgen-medium", "qwen2-vl-2b"]
+
+
+def _step_inputs(cfg, seed, pos, device):
+    inp = {k: v.to(device) for k, v in
+           _zoo_inputs(cfg, pos, pos + 1, seed=seed).items()}
+    inp["length"] = torch.tensor(pos, dtype=torch.int32, device=device)
+    return inp
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_cuda_decode_graph_is_the_eager_step(sm90_device, arch):
+    """``make_decode_fn`` on the card against the eager ``decode_step`` on
+    a copy of the same cache: two waves of a 20-token prefill (bf16 cache,
+    past hymba's 16-slot ring) and 4 steps each, 8 steps in all, through
+    one graph; logits bit for bit at every step, the caches after each
+    wave equal."""
+    from repro_torch.serve import make_decode_fn
+    from repro_torch.serve.engine import prefill_with_cache
+    cfg = get_arch(arch).reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=2)
+    decode = make_decode_fn(cfg)
+    S, N = 20, 4
+    for wave in range(2):
+        with torch.inference_mode():
+            inp = {k: v.to(sm90_device) for k, v in
+                   _zoo_inputs(cfg, 0, S, seed=wave).items()}
+            _, cache = prefill_with_cache(params, cfg, inp, max_len=S + N,
+                                          impl="kernel")
+            eager = {k: v.clone() for k, v in cache.items()}
+            for i in range(N):
+                inp = _step_inputs(cfg, wave, S + i, sm90_device)
+                got, cache = decode(params, cache, inp)
+                got = got.clone()       # the graph's buffer: next step's
+                want, eager = TT.decode_step(params, cfg, eager, inp)
+                assert torch.equal(got, want), (wave, i)
+        assert cache is decode.last.cache
+        for name, t in eager.items():
+            assert torch.equal(cache[name], t), (wave, name)
+    assert len(decode.graphs) == 1
+    g = decode.last
+    assert g.capture_s > 0 and g.nodes >= g.kernels > 0
+
+
+def test_cuda_batch_server_graph_tokens_equal_eager(sm90_device):
+    """hymba at reduced width: the server's graph decode and the eager step
+    (``server._decode`` swapped for ``decode_step``) give the same tokens
+    over two waves of one batch shape; the first wave records a capture,
+    the second replays the same graph."""
+    cfg = get_arch("hymba-1.5b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, 24).astype(np.int32)
+               for _ in range(4)]
+    results = {}
+    for name in ("graph", "eager"):
+        server = BatchServer(params, cfg, n_slots=2, max_len=40,
+                             device=sm90_device)
+        if name == "eager":
+            server._decode = torch.inference_mode()(
+                lambda p, c, i: TT.decode_step(p, cfg, c, i))
+        for i, pr in enumerate(prompts):
+            server.submit(Request(request_id=f"r{i}", prompt=pr,
+                                  max_new_tokens=8))
+        done = server.run(max_requests=4, idle_timeout_s=0.5)
+        results[name] = [r.result_tokens for r in done]
+        if name == "graph":
+            assert len(server.decode_fn.graphs) == 1
+            first, second = server.waves
+            assert first["graph_capture_s"] > 0
+            assert second["graph_capture_s"] == 0.0
+            assert first["graph_nodes"] == second["graph_nodes"] > 0
+    assert results["graph"] == results["eager"]
+
+
+def test_cuda_decode_capture_that_syncs_raises(sm90_device, monkeypatch):
+    """A step that reads the position on the host (``_ring`` patched to
+    call ``int``) runs eagerly but cannot be captured: the call raises,
+    and the card goes on working."""
+    from repro_torch.serve import make_decode_fn
+    from repro_torch.serve.engine import prefill_with_cache
+    cfg = get_arch("internlm2-1.8b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=3)
+    ring = TT._ring
+    monkeypatch.setattr(TT, "_ring", lambda cfg, size, length: ring(
+        cfg, size, int(length)))
+    with torch.inference_mode():
+        inp = {k: v.to(sm90_device) for k, v in
+               _zoo_inputs(cfg, 0, 8).items()}
+        _, cache = prefill_with_cache(params, cfg, inp, max_len=12)
+        decode = make_decode_fn(cfg)
+        with pytest.raises(RuntimeError):
+            decode(params, cache, _step_inputs(cfg, 0, 8, sm90_device))
+    assert decode.graphs == {}
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    x = torch.ones(4, device=sm90_device)
+    assert float((x + 1).sum()) == 8.0
+
+
+def test_cuda_decode_capture_that_widens_raises(sm90_device):
+    """mamba2 from ``init_cache``'s bf16 conv window: the step widens it to
+    fp32 (a new tensor, not the captured one), so the call raises; the
+    prefill's fp32 states capture."""
+    from repro_torch.serve import make_decode_fn
+    cfg = get_arch("mamba2-130m").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=3)
+    cache = TT.init_cache(cfg, 2, 8, device=sm90_device)
+    assert cache["conv"].dtype == torch.bfloat16
+    decode = make_decode_fn(cfg)
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="widen"):
+        decode(params, cache, _step_inputs(cfg, 0, 0, sm90_device))
+    assert decode.graphs == {}
