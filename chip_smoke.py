@@ -79,14 +79,22 @@ calibrator's phase also runs the drift tool
 (``repro_torch.tools.calibration_drift``) for k-means on the card.
 
 Every phase that serves (``serve``, ``lm_example``, ``serve_mla``,
-``vlm_mrope``, ``serve_moe`` and the five) decodes through
-``serve.make_decode_fn``'s CUDA graph, one a batch shape, and holds every
-step against the eager ``decode_step`` on a copy of the same cache
-(logits bit for bit, or within 1e-5 of their scale, and tokens equal;
-:class:`CheckedDecode`): it reports each wave's eager and graph ms a
-step, the capture's ms and the graph's nodes, and for hymba-1.5b and
-mamba2-130m a ``torch.profiler`` trace of 8 eager and 8 graph steps
-(``decode_trace``: idle share, kernels a step).
+``vlm_mrope``, ``serve_moe`` and the five) prefills through
+``serve.make_prefill_fn``'s CUDA graph, one a (batch, prompt) shape with
+the flash and SSD kernels inside it, and decodes through
+``serve.make_decode_fn``'s, one a batch shape.  It holds every prefill
+against the eager ``prefill_with_cache`` on the same inputs
+(:class:`CheckedPrefill`: last-position logits and the whole cache) and
+every step against the eager ``decode_step`` on a copy of the same cache
+(:class:`CheckedDecode`), bit for bit, or within 1e-5 of their scale,
+tokens equal.  It reports each wave's eager and graph ms, the captures'
+ms and the graphs' nodes beside the eager prefill's op count on the host
+(:func:`prefill_ops`), and the kernel launches of each wave's replay and
+of each capture's eager warm-up (the checks' own launches left out).
+For hymba-1.5b and mamba2-130m, ``torch.profiler`` traces 3 eager
+prefills and 3 graph replays of the 1,024-token wave (``prefill_trace``)
+and 8 eager and 8 graph decode steps (``decode_trace``): idle share,
+kernels a prefill or a step.
 
 Each phase prints one JSON line; the card's ``nvidia-smi`` name and power
 limit, then a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
@@ -223,11 +231,16 @@ SERVE_MAX_LEN = 4128
 # a near-tie of the plain run's top two logits
 MODEL_TOL = 2e-3
 NEAR_TIE = 1e-4
-# the decode graph against the eager step on the same cache: bit for bit,
-# or logits within this share of their largest magnitude, tokens equal
+# the decode and prefill graphs against the eager step or prefill on the
+# same inputs: bit for bit, or logits (and each cache entry) within this
+# share of their largest magnitude, tokens equal
 GRAPH_REL_TOL = 1e-5
 TRACE_ARCHS = ("hymba-1.5b", "mamba2-130m")
 TRACE_STEPS = 8
+TRACE_PREFILLS = 3
+# the aten ops that allocate without launching a kernel (prefill_ops)
+ALLOCATIONS = ("empty", "empty_like", "empty_strided", "new_empty",
+               "new_empty_strided")
 # training: internlm2-1.8b at full width and depth, fp32, 8 steps
 TRAIN_ARCH = "internlm2-1.8b"
 TRAIN_BATCH = 4
@@ -918,15 +931,208 @@ def graph_rows(waves, read_ms=None):
     return rows
 
 
-def trace_decode(torch, T, serve, params, cfg, device, prompt_len):
-    """One wave of ``SERVE_SLOTS`` prompts of ``prompt_len`` tokens
-    prefilled (bf16 cache), its graph captured, then ``TRACE_STEPS`` eager
-    steps (``decode_step`` on a copy of the cache) and ``TRACE_STEPS``
-    graph replays under ``torch.profiler``, each run inside one range that
-    ends in a synchronisation: its window, the device's busy time (the
-    union of its kernels and copies), idle share, and kernels a step.
+def kernel_counters():
+    """The launch counters of the kernels on the serving path, by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    return {**fa.LAUNCHES, **ssd.LAUNCHES}
+
+
+class CheckedPrefill:
+    """A prefill function of ``serve.make_prefill_fn`` (its CUDA graph on
+    the card) held at every call against its eager prefill
+    (``prefill_with_cache`` at the same settings) on the same inputs: the
+    last position's logits (every codebook's) and every cache entry bit
+    for bit, or within ``GRAPH_REL_TOL`` of their largest magnitude, and
+    the greedy tokens (every codebook's) equal; raises otherwise, and when
+    a prefill on the card went through no graph.  Every other attribute
+    is the function's.
+
+    A key's first call returns its eager warm-up's result and captures
+    the graph; here it is timed whole as ``first_ms``, and the graph is
+    then replayed on the same inputs, so that every result this returns
+    is a graph's.  Records, for each call (a wave), the graph's and the
+    eager prefill's ms (host clock between synchronisations), the
+    capture's ms, the graph's nodes and kernel nodes, the launches a
+    replay adds (read from the graph's kernel nodes) and those the
+    wrappers counted at its capture.  The eager prefill is a check, not
+    the served path: its kernel launches are kept apart in
+    ``check_launches``."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn = torch, fn
+        self.counters = kernel_counters()
+        self.waves = []
+        self.captures = 0
+        self.check_launches = dict.fromkeys(self.counters, 0)
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __call__(self, params, inputs):
+        torch = self.torch
+        captures = self.fn.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = self.fn(params, inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = self.fn.last
+        if g is None:
+            raise AssertionError("a prefill on the card went through no "
+                                 "graph")
+        names = {id(c): name for name, c in self.counters.items()}
+        w = {"batch": int(next(iter(inputs.values())).shape[0]),
+             "prompt": int(next(iter(inputs.values())).shape[1]),
+             "first_ms": None, "capture_ms": 0.0, "nodes": g.nodes,
+             "kernels": g.kernels,
+             "launches": {names[id(c)]: n for c, n in g.launches
+                          if id(c) in names},
+             "counted": {names[id(c)]: n for c, n in g.counted
+                         if id(c) in names}}
+        if self.fn.captures > captures:
+            self.captures += 1
+            w["first_ms"] = (t1 - t0) * 1e3
+            w["capture_ms"] = g.capture_s * 1e3
+            del logits, cache                   # the warm-up's
+            t0 = time.perf_counter()
+            logits, cache = self.fn(params, inputs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        w["graph_ms"] = (t1 - t0) * 1e3
+        before = {k: c.count for k, c in self.counters.items()}
+        with torch.inference_mode():
+            want, wcache = self.fn.eager(params, inputs)
+        torch.cuda.synchronize()
+        w["eager_ms"] = (time.perf_counter() - t1) * 1e3
+        for k, c in self.counters.items():
+            self.check_launches[k] += c.count - before[k]
+        pairs = [("logits", logits[:, -1], want[:, -1])] + [
+            (name, cache[name], wcache[name]) for name in wcache]
+        if set(cache) != set(wcache):
+            raise AssertionError(f"prefill graph vs eager: cache entries "
+                                 f"{sorted(cache)} vs {sorted(wcache)}")
+        w["bitwise"], w["max_rel_err"] = True, 0.0
+        for name, a, b in pairs:
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"prefill graph vs eager: {name} is "
+                                     f"{a.dtype} {tuple(a.shape)}, not "
+                                     f"{b.dtype} {tuple(b.shape)}")
+            if torch.equal(a, b):
+                continue
+            w["bitwise"] = False
+            scale = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            w["max_rel_err"] = max(w["max_rel_err"], err / scale)
+            if not err <= GRAPH_REL_TOL * scale:
+                raise AssertionError(f"prefill graph vs eager: {name} "
+                                     f"differs by {err} of {scale}")
+        vocab = self.fn.cfg.vocab_size
+        if not torch.equal(logits[:, -1, ..., :vocab].argmax(-1),
+                           want[:, -1, ..., :vocab].argmax(-1)):
+            raise AssertionError("prefill graph vs eager: tokens differ")
+        self.waves.append(w)
+        return logits, cache
+
+
+def prefill_rows(waves):
+    """:class:`CheckedPrefill`'s rows, with eager ÷ graph and, for a wave
+    that captured, the replays of its shape that pay for the capture
+    (capture ms ÷ the ms a replay saves; None where it saves none).  That
+    wave's eager prefill follows the capture's ``empty_cache`` and
+    allocates its working set anew, so the saving runs high there:
+    :func:`trace_prefill` has the warm figure."""
+    rows = []
+    for w in waves:
+        saved = w["eager_ms"] - w["graph_ms"]
+        rows.append(dict(w, eager_over_graph=w["eager_ms"] / w["graph_ms"],
+                         replays_to_repay=(w["capture_ms"] / saved
+                                           if w["capture_ms"] and saved > 0
+                                           else None)))
+    return rows
+
+
+def traced(prof, names, n, per):
+    """Each of ``names`` is a ``record_function`` range of ``n`` runs
+    that ends in a synchronisation: its window, the device's busy time
+    (the union of its kernels and copies), idle share, and kernels a run.
     Fields are None where the profiler saw no device work."""
     from torch.autograd import DeviceType
+    events = prof.events()
+    # the ranges' own device-side annotations span them whole
+    device_events = [e for e in events if e.device_type == DeviceType.CUDA
+                     and e.name not in names]
+    out = {"device_events": len(device_events)}
+    for name in names:
+        rng_ = next(e.time_range for e in events
+                    if e.name == name and e.device_type == DeviceType.CPU)
+        lo, hi = rng_.start, rng_.end
+        spans = sorted((max(e.time_range.start, lo), min(e.time_range.end,
+                                                          hi))
+                       for e in device_events
+                       if e.time_range.start < hi and e.time_range.end > lo)
+        busy, end = 0.0, lo
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        kernels = sum(1 for e in device_events
+                      if lo <= e.time_range.start < hi
+                      and not e.name.startswith(("Memcpy", "Memset")))
+        seen = bool(spans)
+        out[name.split("_", 1)[1]] = {
+            "window_ms": (hi - lo) / 1e3,
+            f"ms_per_{per}": (hi - lo) / 1e3 / n,
+            "busy_ms": busy / 1e3 if seen else None,
+            "idle_share": 1.0 - busy / (hi - lo) if seen else None,
+            f"kernels_per_{per}": kernels / n if seen else None}
+    return out
+
+
+def trace_prefill(torch, serve, params, cfg, device, prompt_len):
+    """One wave of ``SERVE_SLOTS`` prompts of ``prompt_len`` tokens through
+    ``make_prefill_fn(impl="kernel")`` (its graph captured first), then
+    ``TRACE_PREFILLS`` eager prefills and ``TRACE_PREFILLS`` graph
+    replays of the same wave under ``torch.profiler`` (:func:`traced`),
+    and the replays that pay for the capture (capture ms ÷ the ms a
+    replay saves over a warm eager prefill; None where it saves none)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    rng = np.random.default_rng(SEED + 10)
+    shape = ((SERVE_SLOTS, prompt_len, cfg.n_codebooks)
+             if cfg.n_codebooks > 1 else (SERVE_SLOTS, prompt_len))
+    inputs = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, shape)).to(device)}
+    prefill = serve.make_prefill_fn(cfg, prompt_len + TRACE_STEPS,
+                                    impl="kernel")
+    with torch.inference_mode():
+        prefill(params, inputs)                               # captures
+        prefill.eager(params, inputs)
+        torch.cuda.synchronize()
+        runs = {"prefill_eager": lambda: prefill.eager(params, inputs),
+                "prefill_graph": lambda: prefill(params, inputs)}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for name, run in runs.items():
+                with record_function(name):
+                    for _ in range(TRACE_PREFILLS):
+                        run()
+                    torch.cuda.synchronize()
+    out = {"prefills": TRACE_PREFILLS, "graph_nodes": prefill.last.nodes,
+           "graph_kernel_nodes": prefill.last.kernels,
+           "capture_ms": prefill.last.capture_s * 1e3,
+           **traced(prof, list(runs), TRACE_PREFILLS, "prefill")}
+    saved = out["eager"]["ms_per_prefill"] - out["graph"]["ms_per_prefill"]
+    out["replays_to_repay"] = out["capture_ms"] / saved if saved > 0 else None
+    del prefill
+    return out
+
+
+def trace_decode(torch, T, serve, params, cfg, device, prompt_len):
+    """One wave of ``SERVE_SLOTS`` prompts of ``prompt_len`` tokens
+    prefilled (bf16 cache) by its prefill graph's first replay, the decode
+    graph captured, then ``TRACE_STEPS`` eager steps (``decode_step`` on
+    a copy of the cache) and ``TRACE_STEPS`` graph replays under
+    ``torch.profiler`` (:func:`traced`)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     rng = np.random.default_rng(SEED + 9)
     n = prompt_len + TRACE_STEPS + 2
@@ -943,55 +1149,46 @@ def trace_decode(torch, T, serve, params, cfg, device, prompt_len):
                                        device=device)}
 
     with torch.inference_mode():
-        _, cache = prefill(params, {"tokens": toks[:, :prompt_len]})
+        first = {"tokens": toks[:, :prompt_len]}
+        prefill(params, first)                                # captures
+        _, cache = prefill(params, first)                     # replays
         _, cache = decode(params, cache, step_inputs(0))      # captures
         eager = {k: v.clone() for k, v in cache.items()}
         T.decode_step(params, cfg, eager, step_inputs(1))
         _, cache = decode(params, cache, step_inputs(1))
         torch.cuda.synchronize()
-        runs = {"eager": lambda i: T.decode_step(params, cfg, eager,
-                                                 step_inputs(i)),
-                "graph": lambda i: decode(params, cache, step_inputs(i))}
+        runs = {"decode_eager": lambda i: T.decode_step(
+                    params, cfg, eager, step_inputs(i)),
+                "decode_graph": lambda i: decode(params, cache,
+                                                 step_inputs(i))}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for name, run in runs.items():
-                with record_function(f"decode_{name}"):
+                with record_function(name):
                     for i in range(2, 2 + TRACE_STEPS):
                         run(i)
                     torch.cuda.synchronize()
-    events = prof.events()
-    # the ranges' own device-side annotations span them whole
-    device_events = [e for e in events if e.device_type == DeviceType.CUDA
-                     and e.name not in {f"decode_{n}" for n in runs}]
-    out = {"steps": TRACE_STEPS, "device_events": len(device_events),
-           "graph_nodes": decode.last.nodes,
-           "graph_kernel_nodes": decode.last.kernels}
-    for name in runs:
-        rng_ = next(e.time_range for e in events
-                    if e.name == f"decode_{name}"
-                    and e.device_type == DeviceType.CPU)
-        lo, hi = rng_.start, rng_.end
-        spans = sorted((max(e.time_range.start, lo), min(e.time_range.end,
-                                                          hi))
-                       for e in device_events
-                       if e.time_range.start < hi and e.time_range.end > lo)
-        busy, end = 0.0, lo
-        for a, b in spans:
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        kernels = sum(1 for e in device_events
-                      if lo <= e.time_range.start < hi
-                      and not e.name.startswith(("Memcpy", "Memset")))
-        seen = bool(spans)
-        out[name] = {"window_ms": (hi - lo) / 1e3,
-                     "ms_per_step": (hi - lo) / 1e3 / TRACE_STEPS,
-                     "busy_ms": busy / 1e3 if seen else None,
-                     "idle_share": 1.0 - busy / (hi - lo) if seen else None,
-                     "kernels_per_step": (kernels / TRACE_STEPS if seen
-                                          else None)}
+    out = {"steps": TRACE_STEPS, "graph_nodes": decode.last.nodes,
+           "graph_kernel_nodes": decode.last.kernels,
+           **traced(prof, list(runs), TRACE_STEPS, "step")}
     del cache, eager, decode
     return out
+
+
+class Tapped:
+    """``fn`` that hands each result to ``tap(*result)`` before it returns
+    it; every other attribute is ``fn``'s."""
+
+    def __init__(self, fn, tap):
+        self.fn, self.tap = fn, tap
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.tap(*out)
+        return out
 
 
 def run_server(torch, serve, params, cfg, device, impl, prompts,
@@ -1001,29 +1198,31 @@ def run_server(torch, serve, params, cfg, device, impl, prompts,
     last-position prefill logits (every codebook's), its prefill cache,
     the two largest logits of every greedy token, and the first request's
     logits at every step (codebook 0's, which the server samples, where
-    there are several), cloned from the decode graph's static buffer.
-    With ``check``, every decode step is held against the eager step
-    (:class:`CheckedDecode`, kept as ``server.checked``)."""
+    there are several), cloned from the graphs' static buffers.  With
+    ``check``, every prefill is held against the eager prefill
+    (:class:`CheckedPrefill`, kept as ``server.checked_prefill``) and
+    every decode step against the eager step (:class:`CheckedDecode`,
+    kept as ``server.checked``)."""
     from repro_torch.models import transformer as T
     server = serve.BatchServer(params, cfg, n_slots=SERVE_SLOTS,
                                max_len=max_len, impl=impl, device=device)
     captured = []
-    prefill, decode = server._prefill1, server._decode
+    prefill, decode = server.prefill_fn, server._decode
     server.checked = CheckedDecode(torch, T, cfg, decode) if check else None
+    server.checked_prefill = (CheckedPrefill(torch, prefill) if check
+                              else None)
     if check:
-        decode = server.checked
+        prefill, decode = server.checked_prefill, server.checked
     sampled = ((lambda t: t) if cfg.n_codebooks == 1
                else (lambda t: t[:, 0]))
 
-    def capture_prefill(p, inputs):
-        logits, cache = prefill(p, inputs)
+    def capture_prefill(logits, cache):
         last = logits[:, -1]
         captured.append({"logits": last.float().clone(),
                          "cache": {k: v.clone() for k, v in cache.items()},
                          "tops": [_top2(torch, sampled(last),
                                         cfg.vocab_size)],
                          "rows": [sampled(last)[0].float().clone()]})
-        return logits, cache
 
     def capture_decode(p, cache, inputs):
         logits, cache = decode(p, cache, inputs)
@@ -1032,7 +1231,8 @@ def run_server(torch, serve, params, cfg, device, impl, prompts,
         captured[-1]["rows"].append(step[0].float().clone())
         return logits, cache
 
-    server._prefill1, server._decode = capture_prefill, capture_decode
+    server.prefill_fn = Tapped(prefill, capture_prefill)
+    server._decode = capture_decode
     for i, pr in enumerate(prompts):
         server.submit(serve.Request(request_id=f"req-{i}", prompt=pr,
                                     max_new_tokens=new_tokens))
@@ -1056,10 +1256,12 @@ def check_served(done, n_requests, cfg, new_tokens):
 
 def serve_stats(torch, server, done, n_tok, wall, device, read_ms=None):
     """The serving metrics of one ``run_server`` run, as ``serve``
-    reports them.  A checked run's wall time and tokens/s include the
-    eager check of every step; its ``decode_ms_per_step`` is the graph's
-    step (:class:`CheckedDecode`), and ``decode_graph`` has each wave's
-    row."""
+    reports them.  A checked run's wall time, tokens/s and first-token
+    latency include the eager check of every prefill and step, and its
+    ``prefill_ms`` a wave's first call (for a new shape: the eager
+    warm-up, the capture and :class:`CheckedPrefill`'s replay); its ``decode_ms_per_step`` is the
+    graph's step (:class:`CheckedDecode`), ``prefill_graph`` and
+    ``decode_graph`` have each wave's row."""
     first = np.array([r.t_first_token - r.t_submit for r in done])
     out = dict(
         requests=len(done), tokens=n_tok, wall_s=wall,
@@ -1079,7 +1281,37 @@ def serve_stats(torch, server, done, n_tok, wall, device, read_ms=None):
         out["eager_decode_ms_per_step"] = [r["eager_ms"] for r in rows]
         out["graph_capture_ms"] = [w["graph_capture_s"] * 1e3
                                    for w in server.waves]
+        out["prefill_graph"] = prefill_rows(server.checked_prefill.waves)
+        out["prefill_capture_ms"] = [w["prefill_capture_s"] * 1e3
+                                     for w in server.waves]
+        out["max_memory_reserved_gb"] = torch.cuda.max_memory_reserved(
+            device) / 1e9
     return out
+
+
+def check_launches(checked, counters, layers):
+    """A checked run's launches of each kernel on the served path (the
+    counts less the checks' own, :class:`CheckedPrefill`): each wave's
+    replay and each capture's eager warm-up launch the kernel once a layer
+    (``layers[name]``; a capture launches nothing).  Raises otherwise, and
+    where a wave's graph does not hold it once a layer, counted from its
+    kernel nodes' names and by the wrappers at its capture.  Returns
+    them."""
+    launches = {name: c.count - checked.check_launches[name]
+                for name, c in counters.items()}
+    waves = len(checked.waves)
+    want = {name: (waves + checked.captures) * layers[name]
+            for name in counters}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want} "
+                             f"((waves + captures) x layers)")
+    for w in checked.waves:
+        for key in ("launches", "counted"):
+            got = {name: w[key].get(name, 0) for name in counters}
+            if got != layers:
+                raise AssertionError(f"a {w['prompt']}-token prefill graph "
+                                     f"{key} {w[key]}, not {layers}")
+    return launches
 
 
 def serve_hymba(torch, serve, T, fa, ssd, device):
@@ -1099,18 +1331,15 @@ def serve_hymba(torch, serve, T, fa, ssd, device):
     # warm the libraries (cuBLAS handles, allocator) on a short wave
     run_server(torch, serve, params, cfg, device, "kernel",
                [prompts[0][:64]], check=False)
-    counters = [fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_chunk_scan"]]
+    counters = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_chunk_scan": ssd.LAUNCHES["ssd_chunk_scan"]}
     torch.cuda.reset_peak_memory_stats(device)
-    for c in counters:
+    for c in counters.values():
         c.reset()
     server, done, captured, wall = run_server(torch, serve, params, cfg,
                                               device, "kernel", prompts)
-    launches = {"flash_attention": counters[0].count,
-                "ssd_chunk_scan": counters[1].count}
-    want = len(SERVE_WAVES) * cfg.n_layers
-    if launches != {"flash_attention": want, "ssd_chunk_scan": want}:
-        raise AssertionError(f"serve launches {launches}, expected {want} "
-                             f"of each (waves x layers)")
+    launches = check_launches(server.checked_prefill, counters,
+                              dict.fromkeys(counters, cfg.n_layers))
     read_ms = (decode_weight_bytes(cfg, params, SERVE_SLOTS)
                / HBM_BYTES_PER_S * 1e3)
     stats = serve_stats(torch, server, done,
@@ -1124,11 +1353,16 @@ def serve_hymba(torch, serve, T, fa, ssd, device):
                 for v in w["cache"].values()):
             raise AssertionError("non-finite prefill logits or cache")
     emit("serve", arch=SERVE_ARCH, params=n_params, init_s=init_s, **stats,
-         launches=launches, decode_weight_read_ms=read_ms)
+         launches=launches, decode_weight_read_ms=read_ms,
+         prefill_ops=[prefill_ops(torch, T, serve, cfg, SERVE_SLOTS, n)
+                      for n in SERVE_WAVES])
     emit("decode_trace", arch=SERVE_ARCH, batch=SERVE_SLOTS,
          prompt=SERVE_WAVES[0], weight_read_ms=read_ms,
          **trace_decode(torch, T, serve, params, cfg, device,
                         SERVE_WAVES[0]))
+    emit("prefill_trace", arch=SERVE_ARCH, batch=SERVE_SLOTS,
+         prompt=SERVE_WAVES[0],
+         **trace_prefill(torch, serve, params, cfg, device, SERVE_WAVES[0]))
     return params, cfg, prompts, done, captured, launches
 
 
@@ -2545,44 +2779,60 @@ def lm_example(torch, fa, device):
     """``repro_torch.examples.train_and_serve_lm.main --params 100`` (12
     layers × 768) on the card: a short training run whose loss must fall,
     checkpoints, publish and fetch through the parameter service, then 8
-    requests served through ``BatchServer``, whose GQA prefill goes
-    through the flash-attention kernel (its launch count set to 0 just
-    before and read just after), and whose decode graph is held against
-    the eager step at every step (:class:`CheckedDecode`, put in through
-    ``serve.engine.make_decode_fn``).  Every launch's inputs and output
-    are kept, and each output is held against the plain version on the
-    same inputs at the flash checks' fp32 tolerance (:func:`flash_tol`)."""
+    requests served through ``BatchServer``, whose GQA prefill graph runs
+    the flash-attention kernel (its launch count set to 0 just before and
+    read just after) and is held against the eager prefill at every wave
+    (:class:`CheckedPrefill`), and whose decode graph is held against the
+    eager step at every step (:class:`CheckedDecode`; both put in through
+    ``serve.engine``).  Every launch that runs Python (the graph's eager
+    warm-up and the eager check, which the graph equals bit for bit; a
+    capture fills no tensor and a replay runs no Python) keeps its inputs
+    and output, each held against the plain version on the same inputs at
+    the flash checks' fp32 tolerance (:func:`flash_tol`)."""
     from repro_torch.examples import train_and_serve_lm as lm
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine
     launch, seen = fa.launch, []
     make_decode, made = engine.make_decode_fn, []
+    make_prefill, made_prefill = engine.make_prefill_fn, []
 
     def checked_make(cfg):
         made.append(CheckedDecode(torch, T, cfg, make_decode(cfg)))
         return made[-1]
 
+    def checked_make_prefill(cfg, max_len, **kw):
+        made_prefill.append(CheckedPrefill(torch, make_prefill(cfg, max_len,
+                                                               **kw)))
+        return made_prefill[-1]
+
     def kept_launch(q, k, v, *, causal=True, window=None):
         out = launch(q, k, v, causal=causal, window=window)
-        seen.append((q.clone(), k.clone(), v.clone(), causal, window,
-                     out.clone()))
+        if not torch.cuda.is_current_stream_capturing():
+            seen.append((q.clone(), k.clone(), v.clone(), causal, window,
+                         out.clone()))
         return out
 
     for counter in fa.LAUNCHES.values():
         counter.reset()
-    fa.launch, engine.make_decode_fn = kept_launch, checked_make
+    fa.launch, engine.make_decode_fn, engine.make_prefill_fn = (
+        kept_launch, checked_make, checked_make_prefill)
     try:
         t0 = time.perf_counter()
         out = lm.main(device=device, params_m=100, steps=LM_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        fa.launch, engine.make_decode_fn = launch, make_decode
-    if len(made) != 1 or not made[0].waves:
+        fa.launch, engine.make_decode_fn, engine.make_prefill_fn = (
+            launch, make_decode, make_prefill)
+    if len(made) != 1 or not made[0].waves or len(made_prefill) != 1:
         raise AssertionError(f"the LM example's server made {len(made)} "
-                             f"decode functions")
+                             f"decode and {len(made_prefill)} prefill "
+                             f"functions")
     graph = graph_rows(made.pop().waves)
-    launches = {name: c.count for name, c in fa.LAUNCHES.items()}
+    checked = made_prefill.pop()
+    cfg = lm.sized_config(100)
+    launches = check_launches(checked, fa.LAUNCHES,
+                              dict.fromkeys(fa.LAUNCHES, cfg.n_layers))
     worst, shapes = 0.0, set()
     for q, k, v, causal, window, got in seen:
         want = fa.plain(q, k, v, causal=causal, window=window)
@@ -2594,14 +2844,12 @@ def lm_example(torch, fa, device):
             raise AssertionError(f"LM example flash launch at "
                                  f"{tuple(q.shape)}/{tuple(k.shape)}: "
                                  f"max error {float(diff.max())}")
-    if len(seen) != launches["flash_attention"]:
-        raise AssertionError(f"kept {len(seen)} of {launches} launches")
-    del seen
-    cfg = lm.sized_config(100)
     waves = len(out["waves"])
-    if launches["flash_attention"] != cfg.n_layers * waves:
-        raise AssertionError(f"flash launched {launches} for "
-                             f"{cfg.n_layers} layers × {waves} waves")
+    if len(seen) != (checked.captures + waves) * cfg.n_layers or \
+            len(checked.waves) != waves:
+        raise AssertionError(f"kept {len(seen)} launches of {waves} waves "
+                             f"and {checked.captures} captures")
+    del seen
     if out["served"] != 8 or out["tokens"] != 8 * 16:
         raise AssertionError(f"served {out['served']}, {out['tokens']} "
                              f"tokens")
@@ -2612,11 +2860,14 @@ def lm_example(torch, fa, device):
          tok_per_s=hist[-1]["tok_per_s"], version=out["version"],
          served=out["served"], tokens=out["tokens"], waves=waves,
          prefill_ms=[w["prefill_s"] * 1e3 for w in out["waves"]],
+         prefill_graph=prefill_rows(checked.waves),
+         prefill_captures=checked.captures,
+         prefill_ops=prefill_ops(torch, T, engine, cfg, 4, 32),
          decode_ms_mean=[r["graph_ms"] for r in graph],
          eager_decode_ms_mean=[r["eager_ms"] for r in graph],
          decode_graph=graph,
          wall_s=wall, launches=launches,
-         flash_checked_vs_plain=launches["flash_attention"],
+         flash_checked_vs_plain=(checked.captures + waves) * cfg.n_layers,
          flash_max_abs_err=worst,
          flash_shapes=sorted(map(list, shapes), key=str))
 
@@ -2688,6 +2939,8 @@ def serve_mla(torch, serve, T, fa, device):
          d_model=cfg.d_model, params=T.param_count(params), init_s=init_s,
          cache="bf16", **stats, launches=launches,
          decode_weight_read_ms=read_ms,
+         prefill_ops=[prefill_ops(torch, T, serve, cfg, SERVE_SLOTS, n)
+                      for n in MLA_WAVES],
          flash_zero_because="the reference's mla_forward runs dense "
          "attention for every impl but chunked; the flash kernel never "
          "sees MLA's 96-wide q/k and 64-wide v",
@@ -2762,17 +3015,19 @@ def vlm_mrope(torch, T, fa, device):
     """qwen2-vl-2b at full width and depth (28 layers × 1,536, random fp32
     weights): 4 sequences of a 16 × 16 grid of patch embeddings and 768
     text positions (embeddings drawn from the seed), through
-    ``prefill_with_cache(impl="kernel")`` (bf16 cache) and 16 decode steps
-    with (3, B, 1) positions through ``make_decode_fn``'s graph, each held
-    against the eager step (:class:`CheckedDecode`); the flash launch
-    count set to 0 just before and read just after (exactly one a layer).
-    The same run at ``impl="dense"``: prefill and decode logits within
-    2e-3 of the largest magnitude; both runs' greedy tokens reported.  All
-    three runs (warm-up, kernel, dense) replay the one graph the warm-up
-    captured."""
+    ``make_prefill_fn(impl="kernel")``'s graph (the embeds + M-RoPE key;
+    bf16 cache; held against the eager prefill, :class:`CheckedPrefill`)
+    and 16 decode steps with (3, B, 1) positions through
+    ``make_decode_fn``'s graph, each held against the eager step
+    (:class:`CheckedDecode`); the flash launch count set to 0 just before
+    and read just after (exactly one a layer: the kernel run replays the
+    prefill graph the warm-up captured).  The same run at
+    ``impl="dense"`` (its own prefill graph): prefill and decode logits
+    within 2e-3 of the largest magnitude; both runs' greedy tokens
+    reported.  All three runs (warm-up, kernel, dense) replay the one
+    decode graph the warm-up captured."""
     import repro_torch.serve as serve
     from repro_torch.configs import get_arch
-    from repro_torch.serve.engine import prefill_with_cache
     cfg = get_arch(VLM_ARCH)
     b, s, steps = VLM_BATCH, VLM_GRID ** 2 + VLM_TEXT, ZOO_NEW_TOKENS
     t0 = time.monotonic()
@@ -2787,17 +3042,17 @@ def vlm_mrope(torch, T, fa, device):
         device)
     vocab = cfg.vocab_size
     decode = CheckedDecode(torch, T, cfg, serve.make_decode_fn(cfg))
+    prefills = {impl: CheckedPrefill(torch, serve.make_prefill_fn(
+        cfg, s + steps, impl=impl)) for impl in ("kernel", "dense")}
 
     def run(impl):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with torch.inference_mode():
-            logits, cache = prefill_with_cache(
-                params, cfg, {"embeds": embeds[:, :s],
-                              "positions": positions[:, :, :s]},
-                max_len=s + steps, impl=impl)
+            logits, cache = prefills[impl](
+                params, {"embeds": embeds[:, :s],
+                         "positions": positions[:, :, :s]})
+            logits = logits.clone()             # the graph's buffer
             tokens = [torch.argmax(logits[:, -1, :vocab], -1).cpu()]
-            prefill_s = time.perf_counter() - t0
+            prefill_s = prefills[impl].waves[-1]["graph_ms"] / 1e3
             rows, decode_s = [logits[:, -1].float()], []
             for i in range(steps):
                 t = time.perf_counter()
@@ -2814,17 +3069,22 @@ def vlm_mrope(torch, T, fa, device):
 
     run("kernel")                                       # warm up
     counter = fa.LAUNCHES["flash_attention"]
+    checked = prefills["kernel"]
     torch.cuda.reset_peak_memory_stats(device)
     counter.reset()
+    checked.check_launches = dict.fromkeys(checked.check_launches, 0)
     logits, rows, tokens, prefill_s, decode_s = run("kernel")
-    launches = {"flash_attention": counter.count}
+    launches = {"flash_attention": counter.count
+                - checked.check_launches["flash_attention"]}
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    if launches["flash_attention"] != cfg.n_layers:
+    if launches["flash_attention"] != cfg.n_layers or \
+            checked.captures != 1 or checked.waves[-1]["first_ms"] is not None:
         raise AssertionError(f"qwen2-vl flash launches {launches}, "
-                             f"expected {cfg.n_layers}")
+                             f"expected {cfg.n_layers} from one replay")
+    served = counter.count
     plain_logits, plain_rows, plain_tokens, plain_prefill_s, _ = run(
         "dense")
-    if counter.count != cfg.n_layers:
+    if counter.count != served:
         raise AssertionError("the dense path launched the flash kernel")
     errs = {}
     for key, a, want in (("prefill", logits, plain_logits),
@@ -2847,6 +3107,9 @@ def vlm_mrope(torch, T, fa, device):
          first_token_ms_mean=prefill_s * 1e3,
          first_token_ms_p95=prefill_s * 1e3, prefill_ms=prefill_s * 1e3,
          prefill_ms_dense=plain_prefill_s * 1e3,
+         prefill_graph=prefill_rows(checked.waves),
+         prefill_graph_dense=prefill_rows(prefills["dense"].waves),
+         prefill_ops=prefill_ops(torch, T, serve, cfg, b, s),
          decode_ms_per_step=graph[1]["graph_ms"],
          eager_decode_ms_per_step=graph[1]["eager_ms"],
          decode_weight_read_ms=read_ms,
@@ -2856,7 +3119,7 @@ def vlm_mrope(torch, T, fa, device):
          greedy_tokens_dense=plain_tokens.tolist(),
          greedy_equal=int((tokens == plain_tokens).sum()),
          greedy_compared=tokens.numel())
-    del params, embeds, logits, plain_logits
+    del params, embeds, logits, plain_logits, prefills
     torch.cuda.empty_cache()
 
 
@@ -2918,18 +3181,42 @@ def cache_bytes(cfg, batch, positions):
 def serve_plan(torch, T, cfg, waves, slots=SERVE_SLOTS,
                new_tokens=ZOO_NEW_TOKENS):
     """The reckoned device memory of a :func:`serve_zoo` phase in bytes,
-    from shapes alone: the fp32 weights counted on ``meta``; the cache at
-    ``max(waves) + new_tokens`` positions, held live, once more while the
-    prefill stacks its layers, once more as the decode graph's static
-    cache (live from the first wave on; the eager check's copy of it is
-    made in decode steps, where the prefill's transients are gone), and
-    cloned for each wave of both runs by :func:`run_server`; the widest
-    wave's fp32 logits at every position
-    (the prefill computes them all, the server keeps the last); and the
-    larger of the dense path's transients, its fp32 scores twice (each
-    step of ``attention_dense`` makes a new tensor) or three FFN-wide fp32
-    activations (the dense FFN or residual, the SSM's in-projection)."""
-    s = max(waves)
+    from shapes alone.  Its parts: the fp32 weights counted on ``meta``;
+    the cache at ``max(waves) + new_tokens`` positions; each wave's fp32
+    logits at every position (the prefill computes them all) and at the
+    last (all the server's prefill returns); an eager prefill's
+    transients, three FFN-wide fp32 activations (the FFN or residual, the
+    SSM's in-projection), and on the dense path the larger of those and
+    its fp32 scores twice (each step of ``attention_dense`` makes a new
+    tensor).
+
+    The prefill graphs of a server share one pool (``prefill_graph_pool``)
+    that holds the outputs of each graph the server keeps (its last
+    logits and its cache, from its wave on; at most
+    ``MAX_PREFILL_GRAPHS``), and the widest wave's working set beyond
+    them: its layers' cache entries before the stack, its logits at every
+    position and its transients.  The decode graph's static cache is the
+    first wave's prefill cache: a graph's output in the kernel run (whose
+    :class:`CheckedPrefill` serves a replay), the eager warm-up's in the
+    dense run.  An eager prefill (``eager_prefill``: the graph's
+    warm-up, :class:`CheckedPrefill`'s check) holds its logits, its cache
+    twice (the entries and their stack) and its transients in the
+    ordinary pool, whose free blocks the capture hands back.  The peak is
+    the larger of two moments:
+
+    * ``kernel_run``: the eager check of the kernel run's widest wave,
+      beside that pool and :func:`run_server`'s copies of the earlier
+      waves' caches;
+    * ``dense_run``: the dense run's warm-up of its widest wave, beside
+      the kernel run's copies of every wave's cache, the dense run's of
+      the earlier waves, and the dense pool with the earlier waves'
+      outputs and working set.
+
+    The decode steps' eager check copies one cache when the prefill's
+    transients are gone."""
+    from repro_torch.serve.engine import MAX_PREFILL_GRAPHS
+    s, n = max(waves), len(waves)
+    kept = min(n, MAX_PREFILL_GRAPHS)
     params = 4 * T.param_count(T.param_shapes(cfg, dtype=torch.float32))
     cache = cache_bytes(cfg, slots, s + new_tokens)
     width = cfg.d_ff
@@ -2938,14 +3225,79 @@ def serve_plan(torch, T, cfg, waves, slots=SERVE_SLOTS,
         d_in = m.expand * cfg.d_model
         width = max(width, 2 * d_in + 2 * m.n_groups * m.d_state
                     + d_in // m.head_dim)
-    logits = 4 * slots * s * cfg.n_codebooks * cfg.padded_vocab_size
-    transient = max(2 * 4 * slots * cfg.n_heads * s * s,
-                    3 * 4 * slots * s * width)
-    captured = 2 * len(waves) * cache
-    return {"params": params, "cache": cache, "captured_caches": captured,
-            "graph_static_cache": cache, "logits": logits,
-            "transient": transient,
-            "peak": params + captured + 3 * cache + logits + transient}
+    last = 4 * slots * cfg.n_codebooks * cfg.padded_vocab_size
+    logits = sorted(w * last for w in waves)
+    ffn = 3 * 4 * slots * s * width
+    dense = max(2 * 4 * slots * cfg.n_heads * s * s, ffn)
+
+    def eager(transient):
+        return logits[-1] + 2 * cache + transient
+
+    pool = kept * (cache + last) + cache + logits[-1] + ffn
+    kernel_run = params + (n - 1) * cache + pool + eager(ffn)
+    earlier = ((min(n - 1, kept) * (cache + last) + 2 * cache + logits[-2]
+                + dense) if n > 1 else 0)
+    dense_run = params + (2 * n - 1) * cache + earlier + eager(dense)
+    return {"params": params, "cache": cache, "logits": logits[-1],
+            "last_logits": last, "transient": dense,
+            "prefill_graph_pool": pool, "eager_prefill": eager(ffn),
+            "kernel_run": kernel_run, "dense_run": dense_run,
+            "peak": max(kernel_run, dense_run)}
+
+
+def prefill_ops(torch, T, serve, cfg, batch, prompt, impl="kernel"):
+    """The kernel-launching aten ops of one eager prefill of ``batch``
+    prompts of ``prompt`` tokens (bf16 cache), counted on the host under a
+    ``TorchDispatchMode`` over meta tensors (weights and inputs), views and
+    bare allocations left out; the flash kernel and the SSD chunk kernel
+    count one op a call (the recurrence across chunks runs its own ops).
+    The count a graph's kernel nodes should come near."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd as kssd
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and func.overloadpacket not in ALLOCATIONS:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def flash(q, k, v, **kw):
+        Count.n += 1
+        return torch.empty_like(q)
+
+    def scan(xh, dt, A, B_, C_, D, *, chunk):
+        Count.n += 1
+        b, s, nh, hd = xh.shape
+        nc, ds = s // chunk, B_.shape[3]
+        parts = (torch.empty_like(xh),
+                 xh.new_empty((b, nh, nc, ds, hd), dtype=torch.float32),
+                 xh.new_empty((b, nh, nc, chunk), dtype=torch.float32))
+        return kssd.inter_chunk(*parts, C_, chunk)
+
+    params = T.param_shapes(cfg, dtype=torch.float32)
+    meta = torch.device("meta")
+    if cfg.input_mode == "embeddings":
+        inputs = {"embeds": torch.empty((batch, prompt, cfg.d_model),
+                                        device=meta),
+                  "positions": torch.zeros((3, batch, prompt),
+                                           dtype=torch.int32, device=meta)}
+    else:
+        shape = ((batch, prompt, cfg.n_codebooks) if cfg.n_codebooks > 1
+                 else (batch, prompt))
+        inputs = {"tokens": torch.zeros(shape, dtype=torch.long,
+                                        device=meta)}
+    saved = kops._flash, kops._ssd
+    kops._flash, kops._ssd = flash, scan
+    try:
+        with torch.inference_mode(), Count():
+            serve.prefill_with_cache(params, cfg, inputs, prompt + 1,
+                                     impl=impl)
+    finally:
+        kops._flash, kops._ssd = saved
+    return Count.n
 
 
 def tree_bytes(tree) -> int:
@@ -3002,16 +3354,19 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
     """Random fp32 weights from the seed, a bf16 cache, through
     ``BatchServer(impl="kernel")``: 2 waves of 4 requests, 16 new tokens
     each, the kernel launch counts set to 0 just before the timed waves
-    and read just after (a flash launch a layer a wave for attention, an
-    SSD launch a layer a wave for the SSM).  Then the same waves at
-    ``impl="dense"``: tokens equal up to the first place where the dense
-    run's top two logits lie within 2e-3 of 1 + the top logit; prefill
-    logits and caches held by :func:`hold_waves`, but for an MoE, whose
-    routing may flip at a near-tie, where they are reported.  The MoE's
-    prefill ``dropped_frac`` and tokens per expert are recorded from the
-    router, and the distinct experts each decode step chose.  The peak
-    (init, kernel and dense runs) must stay below 80 GB.  Returns the
-    phase's fields."""
+    and read just after (a flash launch a layer for attention, an SSD
+    launch a layer for the SSM, in each wave's prefill graph and each
+    capture's eager warm-up; :func:`check_launches`).  Then the same waves
+    at ``impl="dense"``: tokens equal up to the first place where the
+    dense run's top two logits lie within 2e-3 of 1 + the top logit;
+    prefill logits and caches held by :func:`hold_waves`, but for an MoE,
+    whose routing may flip at a near-tie, where they are reported.  The
+    MoE's prefill ``dropped_frac`` and tokens per expert are recorded from
+    the router in the eager check of each prefill (:class:`CheckedPrefill`,
+    which the graph equals bit for bit: a capture fills no tensor and a
+    replay runs no Python), and the distinct experts each decode step
+    chose in the eager check of each step.  The peak (init, kernel and
+    dense runs) must stay below 80 GB.  Returns the phase's fields."""
     import dataclasses
     from repro_torch.configs import get_arch
     full = get_arch(arch)
@@ -3035,20 +3390,21 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
     route, forward = L.moe_route, L.moe_forward
     routes, drops, decode_ids = [], [], []
 
+    def eager_check():
+        # the graphs' warm-ups and captures run on their side stream, and
+        # their replays run no Python
+        return torch.cuda.current_stream() == torch.cuda.default_stream()
+
     def kept_route(p, xf, top_k):
         out = route(p, xf, top_k)
-        if xf.shape[-2] > SERVE_SLOTS:
-            routes.append(out[3])
-        elif torch.cuda.current_stream() == torch.cuda.default_stream():
-            # the eager check's steps: the graph's warm-up step and its
-            # capture run on its side stream, and its replays run no
-            # Python
-            decode_ids.append(out[3])
+        if eager_check():
+            (routes if xf.shape[-2] > SERVE_SLOTS else decode_ids).append(
+                out[3])
         return out
 
     def kept_forward(p, x, cfg, **kw):
         y, aux = forward(p, x, cfg, **kw)
-        if x.shape[0] * x.shape[1] > SERVE_SLOTS:
+        if x.shape[0] * x.shape[1] > SERVE_SLOTS and eager_check():
             drops.append(aux["dropped_frac"])
         return y, aux
 
@@ -3056,7 +3412,6 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
                 "ssd_chunk_scan": ssd.LAUNCHES["ssd_chunk_scan"]}
     runs = {"flash_attention": cfg.attn_kind in ("gqa", "hybrid"),
             "ssd_chunk_scan": cfg.attn_kind in ("none", "hybrid")}
-    want = {name: len(waves) * layers * int(on) for name, on in runs.items()}
     torch.cuda.reset_peak_memory_stats(device)
     if cfg.moe is not None:
         L.moe_route, L.moe_forward = kept_route, kept_forward
@@ -3066,13 +3421,14 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
         server, done, captured, wall = run_server(
             torch, serve, params, cfg, device, "kernel", prompts,
             max_len=max_len, new_tokens=ZOO_NEW_TOKENS)
-        launches = {name: c.count for name, c in counters.items()}
     finally:
         L.moe_route, L.moe_forward = route, forward
     peaks["kernel"] = torch.cuda.max_memory_allocated(device)
-    if launches != want:
-        raise AssertionError(f"{arch} launches {launches}, expected {want} "
-                             f"(waves x layers)")
+    reserved = {"kernel": torch.cuda.max_memory_reserved(device)}
+    launches = check_launches(server.checked_prefill, counters,
+                              {name: layers * int(on)
+                               for name, on in runs.items()})
+    served = {name: c.count for name, c in counters.items()}
     stats = serve_stats(torch, server, done,
                         check_served(done, len(prompts), cfg,
                                      ZOO_NEW_TOKENS), wall, device)
@@ -3090,7 +3446,8 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
         torch, serve, params, cfg, device, "dense", prompts,
         max_len=max_len, new_tokens=ZOO_NEW_TOKENS, check=False)
     peaks["dense"] = torch.cuda.max_memory_allocated(device)
-    if {name: c.count for name, c in counters.items()} != want:
+    reserved["dense"] = torch.cuda.max_memory_reserved(device)
+    if {name: c.count for name, c in counters.items()} != served:
         raise AssertionError(f"{arch}: the dense path launched a kernel")
     errs = hold_waves(torch, captured, captured_p, hold=cfg.moe is None)
     compared, near_ties = compare_tokens(
@@ -3128,6 +3485,8 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
         emit("decode_trace", arch=arch, batch=SERVE_SLOTS, prompt=waves[0],
              weight_read_ms=read_ms,
              **trace_decode(torch, T, serve, params, cfg, device, waves[0]))
+        emit("prefill_trace", arch=arch, batch=SERVE_SLOTS, prompt=waves[0],
+             **trace_prefill(torch, serve, params, cfg, device, waves[0]))
     return dict(
         arch=arch, layers=layers,
         reduced=(f"n_layers {full.n_layers} -> {layers}"
@@ -3141,6 +3500,9 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
                          for a, b in zip(done, done_p)),
         kernel_vs_dense=errs, logits_and_cache_held=cfg.moe is None,
         peak_gb={name: v / 1e9 for name, v in peaks.items()},
+        peak_reserved_gb={name: v / 1e9 for name, v in reserved.items()},
+        prefill_ops=[prefill_ops(torch, T, serve, cfg, SERVE_SLOTS, n)
+                     for n in waves],
         plan_gb={name: v / 1e9 for name, v in plan.items()},
         decode_weight_read_ms=read_ms,
         decode_bound_ms=(weights + cache) / HBM_BYTES_PER_S * 1e3,

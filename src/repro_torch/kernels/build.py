@@ -20,12 +20,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,6 +38,8 @@ MAX_SMEM_BYTES = 232_448
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# every LaunchCounter, in the order the kernel modules made them
+COUNTERS: List["LaunchCounter"] = []
 # compiler output (ptxas register/shared-memory report) per built source
 build_logs: Dict[str, str] = {}
 
@@ -126,15 +129,37 @@ def library(name: str) -> ctypes.CDLL:
 
 
 class LaunchCounter:
-    """A thread-safe count of kernel launches."""
+    """A thread-safe count of kernel launches.  Every counter made is
+    listed in :data:`COUNTERS`, so that a CUDA graph can count its
+    replays' launches: a replay runs no Python, so no wrapper counts it.
+    ``symbols`` names the ``__global__`` functions one counted launch
+    runs, so that the launches a captured graph holds can be counted from
+    its kernel nodes' names (:func:`count_launches`)."""
 
-    def __init__(self):
+    def __init__(self, symbols: Sequence[str] = ()):
         self._lock = threading.Lock()
         self._n = 0
+        self.symbols = tuple(symbols)
+        # an Itanium-mangled name spells an identifier as <length><name>
+        self._pattern = re.compile("|".join(
+            f"{len(s)}{re.escape(s)}" for s in self.symbols) or "(?!)")
+        COUNTERS.append(self)
+
+    def counts(self, name: str) -> bool:
+        """Whether the kernel function named ``name`` (mangled) is one of
+        this counter's ``symbols``."""
+        return self._pattern.search(name) is not None
 
     def incr(self) -> None:
         with self._lock:
             self._n += 1
+
+    def add(self, n: int) -> None:
+        """Add ``n`` launches: a graph's replay adds those its capture
+        recorded; a negative ``n`` takes back what a capture counted, since
+        a capture launches nothing."""
+        with self._lock:
+            self._n += n
 
     @property
     def count(self) -> int:
@@ -144,6 +169,12 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+
+
+def count_launches(names: Sequence[str]) -> Dict["LaunchCounter", int]:
+    """For each counter of :data:`COUNTERS` with ``symbols``, how many of
+    the kernel function ``names`` (a graph's kernel nodes) are its."""
+    return {c: sum(map(c.counts, names)) for c in COUNTERS if c.symbols}
 
 
 def require_hopper(device, what: str) -> None:

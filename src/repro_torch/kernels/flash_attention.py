@@ -40,7 +40,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import MAX_SMEM_BYTES, LaunchCounter
 
-LAUNCHES = {"flash_attention": LaunchCounter()}
+# a launch runs one of these kernels of csrc/flash_attention.cu
+LAUNCHES = {"flash_attention": LaunchCounter(("flash_f32", "flash_bf16"))}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 # keys per step of the plain version's online softmax

@@ -32,7 +32,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import MAX_SMEM_BYTES, LaunchCounter
 
-LAUNCHES = {"ssd_chunk_scan": LaunchCounter()}
+# a launch runs this kernel of csrc/ssd.cu
+LAUNCHES = {"ssd_chunk_scan": LaunchCounter(("ssd_chunk_kernel",))}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 256
 MAX_WIDTH = 256

@@ -8,8 +8,9 @@ Instantiates a (reduced or full) model with random fp32 parameters from
 the kernels' plain versions on the host), spins up the slot-based
 :class:`BatchServer`, pushes a stream of synthetic requests through it and
 reports latency/throughput — the serving-side end-to-end example.  On the
-card the server decodes through one captured CUDA graph a batch shape;
-the launcher prints each capture's time and the graph's size once.
+card the server prefills through one captured CUDA graph a (batch,
+prompt) shape and decodes through one a batch shape; the launcher prints
+each capture's time and the graph's size once.
 """
 from __future__ import annotations
 
@@ -75,9 +76,11 @@ def main(argv=None):
               f"p95 {np.percentile(lat_first, 95)*1e3:.1f} ms")
         print(f"request latency:     mean {np.mean(lat_total)*1e3:.1f} ms, "
               f"p95 {np.percentile(lat_total, 95)*1e3:.1f} ms")
-    for g in server.decode_fn.graphs.values():
-        print(f"decode graph: captured in {g.capture_s * 1e3:.1f} ms, "
-              f"{g.nodes} nodes ({g.kernels} kernels)")
+    for name, fn in (("prefill", server.prefill_fn),
+                     ("decode", server.decode_fn)):
+        for g in fn.graphs.values():
+            print(f"{name} graph: captured in {g.capture_s * 1e3:.1f} ms, "
+                  f"{g.nodes} nodes ({g.kernels} kernels)")
     return 0
 
 

@@ -24,11 +24,15 @@ and together they put both Hopper kernels on the serving path:
 
 On a CPU tensor ``"kernel"`` takes the kernels' plain versions.
 
-The decode step is the reference's static program: the position is a 0-d
-tensor on the device, so every step of every wave of a batch shape runs
-the same ops on the same shapes.  :func:`make_decode_fn` is the
-counterpart of the reference's ``jax.jit``: on the card it runs that step
-as one captured CUDA graph a batch shape (:class:`DecodeGraph`).
+The reference compiles its two serving programs with ``jax.jit``
+(``repro/serve/engine.py:144`` and ``:152``); their counterparts here
+capture CUDA graphs on the card.  :func:`make_prefill_fn` runs the prefill
+as one graph a (batch, prompt) shape (:class:`PrefillGraph`), with the
+flash and SSD kernels inside it.  The decode step is the reference's
+static program: the position is a 0-d tensor on the device, so every step
+of every wave of a batch shape runs the same ops on the same shapes, and
+:func:`make_decode_fn` runs it as one graph a batch shape
+(:class:`DecodeGraph`).  On the host both run eagerly.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import ctypes
 import queue
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import build
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -144,19 +150,9 @@ def prefill_with_cache(params, cfg: ArchConfig, inputs, max_len: int, *,
     return logits, cache
 
 
-def make_prefill_fn(cfg: ArchConfig, max_len: int, *, impl="dense",
-                    chunk=1024, cache_dtype=torch.bfloat16):
-    @torch.inference_mode()
-    def prefill(params, inputs):
-        return prefill_with_cache(params, cfg, inputs, max_len, impl=impl,
-                                  chunk=chunk, cache_dtype=cache_dtype)
-    return prefill
-
-
-def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Tuple[int, int]:
-    """(nodes, kernel nodes) of a graph captured with ``keep_graph=True``,
-    read from its ``cudaGraph_t`` with ``libcuda``'s ``cuGraphGetNodes``."""
-    cu = ctypes.CDLL("libcuda.so.1")
+def _kernel_nodes(cu, graph: "torch.cuda.CUDAGraph") -> Tuple[int, list]:
+    """(nodes, the kernel nodes' handles) of a graph captured with
+    ``keep_graph=True``, read from its ``cudaGraph_t``."""
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
@@ -164,23 +160,67 @@ def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Tuple[int, int]:
     nodes = (ctypes.c_void_p * n.value)()
     if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
         raise RuntimeError("cuGraphGetNodes failed")
-    kind, kernels = ctypes.c_int(0), 0
+    kind, kernels = ctypes.c_int(0), []
     for node in nodes:
         if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
                                  ctypes.byref(kind)) != 0:
             raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == 0                  # CU_GRAPH_NODE_TYPE_KERNEL
+        if kind.value == 0:                         # CU_GRAPH_NODE_TYPE_KERNEL
+            kernels.append(node)
     return n.value, kernels
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Tuple[int, int]:
+    """(nodes, kernel nodes) of a graph captured with ``keep_graph=True``,
+    read with ``libcuda``'s ``cuGraphGetNodes``."""
+    n, kernels = _kernel_nodes(ctypes.CDLL("libcuda.so.1"), graph)
+    return n, len(kernels)
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``cuda.h``."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernel_names(graph: "torch.cuda.CUDAGraph") -> Tuple[int, List[str]]:
+    """(nodes, the mangled function name of each kernel node) of a graph
+    captured with ``keep_graph=True``: what the graph launches, read from
+    the graph itself (``cuGraphKernelNodeGetParams`` and
+    ``cuFuncGetName``, or ``cuKernelGetName`` for a node that holds a
+    ``CUkernel``)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    n, kernels = _kernel_nodes(cu, graph)
+    names = []
+    for node in kernels:
+        p, name = _KernelNodeParams(), ctypes.c_char_p()
+        if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                            ctypes.byref(p)) != 0:
+            raise RuntimeError("cuGraphKernelNodeGetParams failed")
+        if p.func:
+            err = cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(p.func))
+        else:
+            err = cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(p.kern))
+        if err != 0 or name.value is None:
+            raise RuntimeError(f"no name for a kernel node (CUDA error "
+                               f"{err})")
+        names.append(name.value.decode())
+    return n, names
 
 
 _CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
-    """The one side stream on which every decode graph of ``dev`` warms up
-    and is captured.  cuBLAS keeps a workspace (32 MiB on an H100) for each
-    stream it has run on, for the life of the process: a stream a graph
-    would leave one behind with every server."""
+    """The one side stream on which every graph of ``dev`` (prefill and
+    decode) warms up and is captured.  cuBLAS keeps a workspace (32 MiB on
+    an H100) for each stream it has run on, for the life of the process:
+    a stream a graph would leave one behind with every server."""
     if dev not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
     return _CAPTURE_STREAMS[dev]
@@ -189,6 +229,205 @@ def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
 def _spec(tree) -> tuple:
     return tuple((k, tuple(v.shape), v.dtype)
                  for k, v in sorted(tree.items()))
+
+
+def _captured(stream: "torch.cuda.Stream", fn, pool=None):
+    """``fn()`` captured on ``stream`` into a new graph (in ``pool`` if
+    given), kept for :func:`graph_nodes` and instantiated.  Returns (graph,
+    what ``fn`` returned, the seconds taken).  An op that cannot be
+    captured raises its own error."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:        # the error above invalidated it
+                pass
+            raise
+        graph.capture_end()
+    graph.instantiate()
+    return graph, out, time.perf_counter() - t0
+
+
+class PrefillGraph:
+    """One prefill captured as a CUDA graph, for one key of its
+    :class:`PrefillFn` (the params, the inputs' names, shapes and types).
+    It owns static buffers for the inputs (tokens, or embeds and M-RoPE
+    positions); its outputs, the logits and the cache, lie in the memory
+    pool that all graphs of its :class:`PrefillFn` share.
+
+    Made by the first call of its key, which then calls :meth:`capture`,
+    as :class:`DecodeGraph` is: the prefill runs eagerly on the static
+    inputs on a side stream (the warm-up of cuBLAS, the allocator and the
+    kernels' libraries, whose build and load cannot be captured, and that
+    call's result); the blocks the warm-up freed in the ordinary pool go
+    back to the device, since the graph's pool cannot use them and a
+    capture may not free them itself; then the prefill is captured, which
+    executes nothing.  Later calls of the key replay the graph.
+
+    A replay runs no Python, so no kernel wrapper counts its launches.
+    The capture takes back what the wrappers counted (``counted``: it
+    launched nothing), and ``launches`` holds, for each counter with
+    ``symbols``, the graph's kernel nodes that run its kernels, read from
+    the graph (:func:`graph_kernel_names`); every replay adds them.  The
+    two must agree.  A prefill that syncs with the host or does anything
+    else a graph cannot hold raises here: nothing falls back to the eager
+    prefill on the card."""
+
+    def __init__(self, params, inputs, run):
+        self.params = params            # the graph reads them where they lie
+        self.inputs = {k: v.clone() for k, v in inputs.items()}
+        self._run = run
+
+    def capture(self, stream: "torch.cuda.Stream", pool):
+        """The first prefill, eagerly on ``stream``, then the capture
+        there.  Returns the first prefill's (logits, cache)."""
+        cur = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            logits, cache = self._run(self.params, self.inputs)
+        cur.wait_stream(stream)
+        for t in (logits, *cache.values()):
+            t.record_stream(cur)
+        torch.cuda.empty_cache()
+        counters = build.COUNTERS
+        before = [c.count for c in counters]
+        try:
+            self.graph, (self.logits, self.cache), self.capture_s = \
+                _captured(stream, lambda: self._run(self.params, self.inputs),
+                          pool)
+        finally:
+            counted = [c.count - n for c, n in zip(counters, before)]
+            for c, n in zip(counters, counted):
+                c.add(-n)
+        self.counted = [(c, n) for c, n in zip(counters, counted) if n]
+        self.nodes, names = graph_kernel_names(self.graph)
+        self.kernels = len(names)
+        self.launches = [(c, n) for c, n in
+                         build.count_launches(names).items() if n]
+        if dict(self.counted) != dict(self.launches):
+            raise RuntimeError(
+                f"the prefill graph's kernel nodes run "
+                f"{ {c.symbols: n for c, n in self.launches} } where the "
+                f"wrappers counted { {c.symbols: n for c, n in self.counted} }")
+        return logits, cache
+
+    def replay(self, inputs):
+        for k, v in inputs.items():
+            if v is not self.inputs[k]:
+                self.inputs[k].copy_(v)
+        self.graph.replay()
+        for c, n in self.launches:
+            c.add(n)
+        return self.logits, dict(self.cache)
+
+
+def _prefill_at(cfg: ArchConfig, max_len: int, impl, chunk, cache_dtype,
+                last_only: bool):
+    """:func:`prefill_with_cache` at fixed settings, ``run(params,
+    inputs)``, with only the last position's logits where ``last_only``.
+    A graph keeps it: it holds no reference back to the
+    :class:`PrefillFn`, so the function, its graphs and their pool go as
+    soon as the last reference to the function does."""
+    def run(params, inputs):
+        logits, cache = prefill_with_cache(
+            params, cfg, inputs, max_len, impl=impl, chunk=chunk,
+            cache_dtype=cache_dtype)
+        if last_only:                   # a copy, so the (B, S, V) one goes
+            logits = logits[:, -1:].clone()
+        return logits, cache
+    return run
+
+
+# prefill graphs a function keeps: each holds its outputs
+MAX_PREFILL_GRAPHS = 4
+
+
+class PrefillFn:
+    """:func:`make_prefill_fn`'s result, ``prefill(params, inputs) ->
+    (logits, cache)``.  ``eager(params, inputs)`` is the prefill run op by
+    op at this function's settings; ``graphs`` maps each key to its
+    :class:`PrefillGraph`, the least recently used first; ``last`` is the
+    graph of the last call (None on the host); ``pool`` is the memory pool
+    its graphs share; ``captures`` and ``capture_s`` count the graphs it
+    captured and the seconds that took, evicted graphs included."""
+
+    def __init__(self, cfg: ArchConfig, max_len: int, *, impl, chunk,
+                 cache_dtype, last_only):
+        self.cfg = cfg
+        self.eager = _prefill_at(cfg, max_len, impl, chunk, cache_dtype,
+                                 last_only)
+        self.graphs: "OrderedDict[tuple, PrefillGraph]" = OrderedDict()
+        self.last: Optional[PrefillGraph] = None
+        self.pool = None
+        self.captures = 0
+        self.capture_s = 0.0
+
+    def _graph(self, key) -> Optional[PrefillGraph]:
+        g = self.graphs.get(key)
+        if g is not None:
+            self.graphs.move_to_end(key)
+        return g
+
+    def _make_room(self) -> None:
+        """Drop the least recently used graphs until one more fits; their
+        outputs go back to the pool, for the next capture."""
+        while len(self.graphs) >= MAX_PREFILL_GRAPHS:
+            self.graphs.popitem(last=False)
+
+    @torch.inference_mode()
+    def __call__(self, params, inputs):
+        dev = next(iter(inputs.values())).device
+        if dev.type != "cuda":
+            self.last = None
+            return self.eager(params, inputs)
+        # the graph holds ``params``, so their id stays theirs
+        key = (id(params), dev, _spec(inputs))
+        g = self._graph(key)
+        if g is not None:
+            self.last = g
+            return g.replay(inputs)
+        self.last = None
+        self._make_room()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        g = PrefillGraph(params, inputs, self.eager)
+        first = g.capture(_capture_stream(dev), self.pool)
+        self.graphs[key] = self.last = g
+        self.captures += 1
+        self.capture_s += g.capture_s
+        return first
+
+
+def make_prefill_fn(cfg: ArchConfig, max_len: int, *, impl="dense",
+                    chunk=1024, cache_dtype=torch.bfloat16,
+                    last_only: bool = False) -> PrefillFn:
+    """The counterpart of the reference's jitted prefill,
+    ``prefill(params, inputs) -> (logits, cache)``; with ``last_only``,
+    the logits of the last position only, (B, 1, V...).
+
+    On CPU inputs it runs :func:`prefill_with_cache` eagerly (the kernels'
+    plain versions).  On the card it keeps one captured CUDA graph a key
+    (the params, and the inputs' names, shapes and types: tokens (B, S) or
+    (B, S, codebooks), or embeds (B, S, D) with positions (3, B, S)), as
+    jit's cache does.  A key's first call runs the prefill eagerly and
+    returns that result, then captures the graph; later calls replay it.
+    A graph holds its outputs, so the function keeps the
+    :data:`MAX_PREFILL_GRAPHS` most recently used and drops the rest.
+
+    A replay's logits and cache alias the graph's static outputs, which
+    the next replay of that key overwrites; all graphs of one function
+    share one memory pool, so the replay of any other key may overwrite
+    them too.  Prefill graphs replay one at a time, and a caller who keeps
+    one result across another call must clone it (:class:`BatchServer`
+    hands the cache to the decode graph, which copies a new wave's cache
+    into its own).  A capture that cannot be made raises."""
+    return PrefillFn(cfg, max_len, impl=impl, chunk=chunk,
+                     cache_dtype=cache_dtype, last_only=last_only)
 
 
 class DecodeGraph:
@@ -233,22 +472,9 @@ class DecodeGraph:
                     f"the decode step widened cache {name!r} from {t.dtype} "
                     f"to {self.cache[name].dtype}: a captured step needs the "
                     f"cache in the types the prefill gives")
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.stream(stream):
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.logits, _ = T.decode_step(self.params, self.cfg,
-                                               self.cache, self.inputs)
-            except BaseException:
-                try:
-                    self.graph.capture_end()
-                except RuntimeError:    # the error above invalidated it
-                    pass
-                raise
-            self.graph.capture_end()
-        self.graph.instantiate()
-        self.capture_s = time.perf_counter() - t0
+        self.graph, (self.logits, _), self.capture_s = _captured(
+            stream, lambda: T.decode_step(self.params, self.cfg, self.cache,
+                                          self.inputs))
         self.nodes, self.kernels = graph_nodes(self.graph)
         return first
 
@@ -336,15 +562,20 @@ class BatchServer:
     ``Request.temperature`` too).
 
     ``impl`` picks the prefill's attention and SSD scan (``"kernel"`` by
-    default: the Hopper kernels on the card).  The decode step goes
-    through :func:`make_decode_fn` with the position as a device scalar,
-    as the reference's does: on the card, one CUDA graph a batch shape.
-    ``waves`` records, for each wave, its batch, prompt length, the
-    seconds from the prefill call to the first tokens on the host, the
-    seconds of each decode step (each ends when its tokens reach the
-    host), and on the card the seconds this wave spent capturing a graph
-    (0.0 where it replayed one made before) and that graph's nodes and
-    kernel nodes (None on the host)."""
+    default: the Hopper kernels on the card).  The prefill goes through
+    ``prefill_fn``, a :func:`make_prefill_fn` that returns the last
+    position's logits only, and the decode step through
+    :func:`make_decode_fn` with the position as a device scalar, as the
+    reference's server jits both: on the card, one CUDA graph a (batch,
+    prompt) shape for the prefill, with the kernels inside it (the
+    :data:`MAX_PREFILL_GRAPHS` most recently used kept), and one a batch
+    shape for the decode step.  ``waves`` records, for each wave,
+    its batch, prompt length, the seconds from the prefill call to the
+    first tokens on the host, the seconds of each decode step (each ends
+    when its tokens reach the host), and on the card, for the prefill
+    (``prefill_*``) and the decode step (``graph_*``), the seconds this
+    wave spent capturing a graph (0.0 where it replayed one made before)
+    and that graph's nodes and kernel nodes (None on the host)."""
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots: int = 4,
                  max_len: int = 512, impl: str = "kernel", device=None):
@@ -359,7 +590,8 @@ class BatchServer:
         self.n_slots = n_slots
         self.max_len = max_len
         self.impl = impl
-        self._prefill1 = make_prefill_fn(cfg, max_len, impl=impl)
+        self.prefill_fn = make_prefill_fn(cfg, max_len, impl=impl,
+                                          last_only=True)
         self.decode_fn = make_decode_fn(cfg)
         self._decode = self.decode_fn
         self._queue: "queue.Queue[Request]" = queue.Queue()
@@ -418,14 +650,23 @@ class BatchServer:
         if cfg.n_codebooks > 1:
             toks = np.repeat(toks[..., None], cfg.n_codebooks, axis=-1)
         inputs = {"tokens": torch.from_numpy(toks).to(self.device)}
+        prefill = self.prefill_fn
+        spent = prefill.capture_s
         t0 = time.monotonic()
-        logits, cache = self._prefill1(self.params, inputs)
+        logits, cache = prefill(self.params, inputs)
         last = logits[:, -1] if cfg.n_codebooks == 1 else logits[:, -1, 0]
         next_tok = self._argmax(last)                 # waits for the card
         now = time.monotonic()
         stats = {"batch": b, "prompt_len": s_max, "prefill_s": now - t0,
+                 "prefill_capture_s": None, "prefill_nodes": None,
+                 "prefill_kernels": None,
                  "decode_s": [], "graph_capture_s": None,
                  "graph_nodes": None, "graph_kernels": None}
+        g = prefill.last
+        if g is not None:
+            stats["prefill_capture_s"] = prefill.capture_s - spent
+            stats["prefill_nodes"], stats["prefill_kernels"] = (g.nodes,
+                                                                g.kernels)
         self.waves.append(stats)
         del logits, last
         for i, r in enumerate(wave):

@@ -977,3 +977,253 @@ def test_cuda_decode_capture_that_widens_raises(sm90_device):
     with torch.inference_mode(), pytest.raises(RuntimeError, match="widen"):
         decode(params, cache, _step_inputs(cfg, 0, 0, sm90_device))
     assert decode.graphs == {}
+
+
+# ---------------------------------------------------------------------------
+# the prefill as one CUDA graph a (batch, prompt) shape
+# ---------------------------------------------------------------------------
+
+
+def _prefill_inputs(cfg, n, seed, device):
+    return {k: v.to(device) for k, v in _zoo_inputs(cfg, 0, n,
+                                                     seed=seed).items()}
+
+
+def _assert_prefill_is(got, fn, params, inputs):
+    """``got`` (a prefill graph's logits and cache, read before the next
+    call) bit for bit the eager prefill of ``fn`` on the same inputs."""
+    with torch.inference_mode():
+        want, wcache = fn.eager(params, inputs)
+    logits, cache = got
+    assert torch.equal(logits, want)
+    assert set(cache) == set(wcache)
+    for name, t in wcache.items():
+        assert cache[name].dtype == t.dtype, name
+        assert torch.equal(cache[name], t), name
+
+
+def _graph_launches(g):
+    names = {id(c): name for mod in (tfa, tssd)
+             for name, c in mod.LAUNCHES.items()}
+    return {names[id(c)]: n for c, n in g.launches}
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_cuda_prefill_graph_is_the_eager_prefill(sm90_device, arch):
+    """``make_prefill_fn(impl="kernel")`` on the card against the eager
+    prefill on the same inputs: two 24-token waves (past hymba's 16-slot
+    ring), the first capturing, the second replaying the same graph;
+    logits and every cache entry bit for bit.  The graph records a flash
+    launch a layer of attention and an SSD launch a layer of SSM (MLA's
+    attention is dense)."""
+    from repro_torch.serve import make_prefill_fn
+    cfg = get_arch(arch).reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=2)
+    prefill = make_prefill_fn(cfg, 32, impl="kernel")
+    for seed in range(2):
+        inp = _prefill_inputs(cfg, 24, seed, sm90_device)
+        _assert_prefill_is(prefill(params, inp), prefill, params, inp)
+    assert len(prefill.graphs) == 1
+    g = prefill.last
+    assert g.capture_s > 0 and g.nodes >= g.kernels > 0
+    layers = {"flash_attention": cfg.attn_kind in ("gqa", "hybrid"),
+              "ssd_chunk_scan": cfg.attn_kind in ("none", "hybrid")}
+    assert _graph_launches(g) == {k: cfg.n_layers for k, on in
+                                  layers.items() if on}
+
+
+def test_cuda_prefill_graph_interleaved_lengths(sm90_device):
+    """hymba (flash, SSD and the ring): prompts of 16 and 24 tokens in
+    turn, A, B, A, B, each with other tokens.  The two graphs share one
+    memory pool, and a result holds only until the next call; each one,
+    read at once, is the eager prefill's bit for bit."""
+    from repro_torch.serve import make_prefill_fn
+    cfg = get_arch("hymba-1.5b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=5)
+    prefill = make_prefill_fn(cfg, 32, impl="kernel")
+    for seed, n in enumerate((16, 24, 16, 24)):
+        inp = _prefill_inputs(cfg, n, seed, sm90_device)
+        _assert_prefill_is(prefill(params, inp), prefill, params, inp)
+    assert len(prefill.graphs) == 2 and prefill.pool is not None
+
+
+def test_cuda_prefill_graph_launches_count_replays(sm90_device):
+    """hymba: the first call of a key launches each kernel once a layer
+    (the eager warm-up; the capture counts none), ``LAUNCHES`` after 3
+    replays are 3 waves x layers, and the graph's kernel nodes hold the
+    launches the wrappers counted at its capture."""
+    from repro_torch.serve import make_prefill_fn
+    cfg = get_arch("hymba-1.5b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=6)
+    prefill = make_prefill_fn(cfg, 32, impl="kernel")
+    counters = {"flash_attention": tfa.LAUNCHES["flash_attention"],
+                "ssd_chunk_scan": tssd.LAUNCHES["ssd_chunk_scan"]}
+    before = {k: c.count for k, c in counters.items()}
+    prefill(params, _prefill_inputs(cfg, 24, 0, sm90_device))
+    torch.cuda.synchronize()
+    assert {k: c.count - before[k] for k, c in counters.items()} == {
+        k: cfg.n_layers for k in counters}
+    for c in counters.values():
+        c.reset()
+    for seed in range(1, 4):
+        prefill(params, _prefill_inputs(cfg, 24, seed, sm90_device))
+    torch.cuda.synchronize()
+    assert {k: c.count for k, c in counters.items()} == {
+        k: 3 * cfg.n_layers for k in counters}
+    assert _graph_launches(prefill.last) == {k: cfg.n_layers
+                                             for k in counters}
+    assert dict(prefill.last.counted) == dict(prefill.last.launches)
+
+
+def test_cuda_prefill_graph_new_params_capture_again(sm90_device):
+    """The graph holds the params it was captured with: a new params tree
+    captures a second graph, and each tree's replays are right."""
+    from repro_torch.serve import make_prefill_fn
+    cfg = get_arch("internlm2-1.8b").reduced()
+    trees = [TT.init_params(cfg, device=sm90_device, seed=s) for s in (7, 8)]
+    prefill = make_prefill_fn(cfg, 32, impl="kernel")
+    inp = _prefill_inputs(cfg, 24, 0, sm90_device)
+    for params in (*trees, trees[0]):
+        _assert_prefill_is(prefill(params, inp), prefill, params, inp)
+    assert len(prefill.graphs) == 2
+
+
+def test_cuda_prefill_graph_capture_that_syncs_raises(sm90_device,
+                                                      monkeypatch):
+    """A prefill that reads a value on the host (``_pad_seq`` patched to
+    call ``bool`` on a tensor) runs in the eager warm-up but cannot be
+    captured: the call raises, no graph is kept, no result comes back from
+    an eager fallback, the capture's launches are taken back (the
+    warm-up's stay), and the card goes on working."""
+    from repro_torch.serve import engine, make_prefill_fn
+    pad = engine._pad_seq
+
+    def syncing(x, max_len):
+        if bool(x.float().abs().sum() >= 0):
+            return pad(x, max_len)
+        raise AssertionError("unreachable")
+
+    monkeypatch.setattr(engine, "_pad_seq", syncing)
+    cfg = get_arch("internlm2-1.8b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=3)
+    prefill = make_prefill_fn(cfg, 32, impl="kernel")
+    counter = tfa.LAUNCHES["flash_attention"]
+    before = counter.count
+    with pytest.raises(RuntimeError):
+        prefill(params, _prefill_inputs(cfg, 24, 0, sm90_device))
+    assert prefill.graphs == {} and prefill.last is None
+    assert counter.count - before == cfg.n_layers
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    x = torch.ones(4, device=sm90_device)
+    assert float((x + 1).sum()) == 8.0
+
+
+def test_cuda_prefill_graph_batch_server_tokens_equal_eager(sm90_device):
+    """hymba: a server whose prefill is the graph and one whose prefill is
+    the eager ``prefill_with_cache`` (``server.prefill_fn`` replaced) give
+    the same tokens over three waves of 24, 16 and 24 tokens; the first
+    two capture a prefill graph, the third replays the first's."""
+    from repro_torch.serve.engine import prefill_with_cache
+    cfg = get_arch("hymba-1.5b").reduced()
+
+    class Eager:
+        graphs, last, capture_s = {}, None, 0.0
+
+        @torch.inference_mode()
+        def __call__(self, p, inputs):
+            return prefill_with_cache(p, cfg, inputs, 32, impl="kernel")
+
+    params = TT.init_params(cfg, device=sm90_device, seed=1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (24, 24, 16, 16, 24, 24)]
+    results = {}
+    for name in ("graph", "eager"):
+        server = BatchServer(params, cfg, n_slots=2, max_len=32,
+                             device=sm90_device)
+        if name == "eager":
+            server.prefill_fn = Eager()
+        for i, pr in enumerate(prompts):
+            server.submit(Request(request_id=f"r{i}", prompt=pr,
+                                  max_new_tokens=6))
+        done = server.run(max_requests=6, idle_timeout_s=0.5)
+        results[name] = [r.result_tokens for r in done]
+        waves = server.waves
+        assert [w["prompt_len"] for w in waves] == [24, 16, 24]
+        if name == "graph":
+            assert len(server.prefill_fn.graphs) == 2
+            assert waves[0]["prefill_capture_s"] > 0
+            assert waves[1]["prefill_capture_s"] > 0
+            assert waves[2]["prefill_capture_s"] == 0.0
+            assert waves[0]["prefill_nodes"] == waves[2]["prefill_nodes"]
+            assert all(w["prefill_nodes"] >= w["prefill_kernels"] > 0
+                       for w in waves)
+        else:
+            assert server.prefill_fn.graphs == {}
+    assert results["graph"] == results["eager"]
+
+
+def test_cuda_prefill_graph_memory_bounded_over_prompt_lengths(
+        sm90_device):
+    """mamba2-130m at full width through ``BatchServer``: 8 waves of 4
+    prompts, each wave of another length (256 to 2,048 tokens, whole SSD
+    chunks).  Its prefill function keeps the ``MAX_PREFILL_GRAPHS`` most
+    recently used graphs, each holding its last-position logits and its
+    cache, so after every wave the allocation beyond the weights stays
+    within that many graphs' outputs, the decode graph's and 128 MiB:
+    below what 8 graphs would hold, and far below what they would with
+    their logits at every position."""
+    from repro_torch.serve.engine import MAX_PREFILL_GRAPHS
+    cfg = get_arch("mamba2-130m")
+    params = TT.init_params(cfg, device=sm90_device, seed=4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(sm90_device)
+    lengths = [256 * i for i in range(1, 9)]
+    server = BatchServer(params, cfg, n_slots=4, max_len=max(lengths) + 8,
+                         device=sm90_device)
+    rng = np.random.default_rng(4)
+    held = []
+    for n in lengths:
+        for i in range(4):
+            server.submit(Request(request_id=f"{n}-{i}", prompt=rng.integers(
+                1, cfg.vocab_size, n).astype(np.int32), max_new_tokens=2))
+        assert len(server.run(max_requests=4, idle_timeout_s=0.5)) == 4
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated(sm90_device) - base)
+    fn = server.prefill_fn
+    assert [w["prompt_len"] for w in server.waves] == lengths
+    assert fn.captures == len(lengths)
+    assert len(fn.graphs) == MAX_PREFILL_GRAPHS
+    g = fn.last
+    outputs = g.logits.numel() * g.logits.element_size() + sum(
+        t.numel() * t.element_size() for t in g.cache.values())
+    bound = (MAX_PREFILL_GRAPHS + 1) * outputs + 128 * 2 ** 20
+    assert max(held) <= bound, (held, bound)
+    assert (len(lengths) + 1) * outputs > bound
+    every_position = sum(n * g.logits.numel() * 4 for n in lengths)
+    assert every_position > 4 * bound
+
+
+def test_cuda_prefill_graph_freed_with_its_function(sm90_device):
+    """Dropping the last reference to a prefill function frees its
+    graphs, their outputs and their pool at once, with the garbage
+    collector off: the allocation returns to its level."""
+    import gc
+    from repro_torch.serve import make_prefill_fn
+    cfg = get_arch("internlm2-1.8b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=9)
+    inp = _prefill_inputs(cfg, 24, 0, sm90_device)
+    make_prefill_fn(cfg, 32, impl="kernel")(params, inp)   # warms cuBLAS
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(sm90_device)
+    gc.disable()
+    try:
+        prefill = make_prefill_fn(cfg, 32, impl="kernel")
+        out = prefill(params, inp)
+        prefill(params, _prefill_inputs(cfg, 16, 1, sm90_device))
+        assert torch.cuda.memory_allocated(sm90_device) > base
+        del prefill, out
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(sm90_device) == base
+    finally:
+        gc.enable()

@@ -239,3 +239,47 @@ def test_prefill_conv_state_owns_its_memory(arch):
     assert conv.shape == (2, cfg.ssm.d_conv - 1, TL.ssm_dims(cfg)[2])
     assert conv.untyped_storage().nbytes() == \
         conv.numel() * conv.element_size()
+
+
+# each phase's reckoned peak since its prefill goes through CUDA graphs
+# (chip_smoke.serve_plan), in bytes
+PLAN_PEAK_BYTES = {"serve_mamba2": 8_894_494_464,
+                   "serve_musicgen": 31_860_660_224,
+                   "serve_mistral": 74_846_916_608,
+                   "serve_nemotron": 67_362_906_112,
+                   "serve_arctic": 60_961_136_640}
+
+
+@pytest.mark.parametrize("phase", sorted(PLAN_PEAK_BYTES))
+def test_zoo_phase_memory_plan_holds_the_prefill_graphs(phase):
+    """The plan reckons the prefill graphs' shared pool (each kept graph's
+    last-position logits and cache, held from its wave on, and the widest
+    wave's working set with its logits at every position) and an eager
+    prefill beside it (the graph's warm-up, the eager check): the kernel
+    run's peak holds both, the dense run's the dense path's transients;
+    the larger is pinned, under 75 GB.  The pool holds no more graphs'
+    outputs than a prefill function keeps, however many prompt lengths
+    are served."""
+    import dataclasses
+    from repro_torch.serve.engine import MAX_PREFILL_GRAPHS
+    cs = _chip_smoke()
+    (arch, layers, waves), = [row[1:] for row in cs.ZOO_SERVE
+                              if row[0] == phase]
+    cfg = dataclasses.replace(tget_arch(arch), n_layers=layers)
+    plan = cs.serve_plan(torch, TT, cfg, waves)
+    cache, logits, last = plan["cache"], plan["logits"], plan["last_logits"]
+    assert logits == last * max(waves)
+    assert plan["prefill_graph_pool"] >= 2 * (cache + last) + cache + logits
+    assert plan["eager_prefill"] >= logits + 2 * cache
+    assert plan["kernel_run"] >= (plan["params"] + plan["prefill_graph_pool"]
+                                  + plan["eager_prefill"])
+    assert plan["dense_run"] >= (plan["params"] + 3 * cache + logits
+                                 + 2 * plan["transient"])
+    assert plan["peak"] == max(plan["kernel_run"], plan["dense_run"])
+    assert plan["peak"] == PLAN_PEAK_BYTES[phase]
+    assert plan["peak"] < cs.PLAN_LIMIT_BYTES
+    step = max(waves) // (2 * MAX_PREFILL_GRAPHS)
+    many = [step * i for i in range(1, 2 * MAX_PREFILL_GRAPHS + 1)]
+    pools = [cs.serve_plan(torch, TT, cfg, w)["prefill_graph_pool"]
+             for w in (many, many[-MAX_PREFILL_GRAPHS:])]
+    assert pools[0] == pools[1]
