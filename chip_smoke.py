@@ -27,13 +27,16 @@ autoscaling).  These paths launch no kernel of their own beyond k-means.
 
 Last, training: internlm2-1.8b at full width and depth (24 layers, 1.89 B
 fp32 parameters, AdamW, remat, dense attention) for 8 steps of 4 × 1,024
-tokens through ``launch.train.train_loop``, with its step time, data time,
-peak memory, launches and device time a step against its fp32 bound; the
-same step on the card and on the host (2 layers); a checkpointed resume of
-mamba2-130m against a straight run; and the int8-compressed step on a
-one-rank NCCL group.  Training launches no hand-written kernel: the
-reference trains with ``impl="dense"`` and its Pallas kernels have no
-gradient.
+tokens through ``launch.train.train_loop``, whose step is
+``train.step.make_train_fn``'s CUDA graph (params and optimizer state
+updated in place inside it), beside the same 8 steps of its eager step,
+bit for bit: step time, data time, peak memory, launches or kernel
+nodes, capture time and device time a step against the fp32 bound; the
+same step through the graph on the card and eagerly on the host (2
+layers); a checkpointed resume of mamba2-130m through the graph against
+a straight run; and the int8-compressed step (eager) on a one-rank NCCL
+group.  Training launches no hand-written kernel: the reference trains
+with ``impl="dense"`` and its Pallas kernels have no gradient.
 
 Then the launch stack: the GPipe step (``train.pipeline``) with both of
 its 2 stages (12 layers each) in one process, internlm2-1.8b at full
@@ -1873,16 +1876,20 @@ def _max_abs(torch, a, b):
                for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)))
 
 
-def timed_steps(torch, TS):
-    """Wrap ``TS.make_train_step`` so that every step it makes records a
-    CUDA event as its work is queued.  Returns (events, restore): the
-    events of consecutive steps bound each step on the device's timeline,
-    idle time waiting for the host included, without a host sync."""
-    make = TS.make_train_step
-    events = []
+def timed_steps(torch, TS, eager):
+    """Wrap ``TS.make_train_fn`` so that every step of the train function
+    it makes (its eager step, ``make_train_step``, where ``eager``)
+    records a CUDA event as its work is queued.  Returns (events, made,
+    restore): the events of consecutive steps bound each step on the
+    device's timeline, idle time waiting for the host included, without
+    a host sync; ``made`` holds the train functions made."""
+    make = TS.make_train_fn
+    events, made = [], []
 
     def timed_make(*args, **kwargs):
-        step = make(*args, **kwargs)
+        fn = make(*args, **kwargs)
+        made.append(fn)
+        step = fn.eager if eager else fn
 
         def timed(*a, **kw):
             ev = torch.cuda.Event(enable_timing=True)
@@ -1892,30 +1899,26 @@ def timed_steps(torch, TS):
         return timed
 
     def restore():
-        TS.make_train_step = make
+        TS.make_train_fn = make
 
-    TS.make_train_step = timed_make
-    return events, restore
+    TS.make_train_fn = timed_make
+    return events, made, restore
 
 
-def train_full(torch, TL, TS, T, device):
-    """internlm2-1.8b at full width and depth through ``train_loop``:
-    fp32 params and AdamW moments, remat on, dense attention, 4 × 1,024
-    tokens a step from ``make_batch_iterator(seed=0)``, 8 steps, the loss
-    read back at the first and last step only (so the host draws the next
-    batch while the card runs the step, as with the default log_every);
-    then one more step under the profiler."""
-    from torch.utils import _pytree as pytree
-    from repro_torch.configs import get_arch
-    from repro_torch.data import make_batch_iterator
-    cfg = get_arch(TRAIN_ARCH)
-    tc = TS.TrainConfig(lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+def _train_run(torch, TL, TS, cfg, tc, device, eager):
+    """``train_loop`` for ``TRAIN_STEPS`` steps, its step the graph of
+    ``make_train_fn`` or, where ``eager``, that function's eager step.
+    The loss is read back at the first and last step only (so the host
+    draws the next batch while the card runs the step, as with the
+    default log_every).  Returns (measurements, params, state, the train
+    function)."""
     stamps = []
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     compute_grads = TS.compute_grads
     check_on_card(torch, TS, "compute_grads", "the gradients")
-    events, restore = timed_steps(torch, TS)
+    events, made, restore = timed_steps(torch, TS, eager)
     try:
         t0 = time.perf_counter()
         params, state, hist = TL.train_loop(
@@ -1929,7 +1932,6 @@ def train_full(torch, TL, TS, T, device):
     finally:
         TS.compute_grads = compute_grads
         restore()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     on_card(torch, params, "the trained params")
     on_card(torch, state, "the train state")
     losses = [h["loss"] for h in hist]
@@ -1941,13 +1943,43 @@ def train_full(torch, TL, TS, T, device):
     events.append(end)
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     median_ms = statistics.median(step_ms[2:])          # steps 3-8
-    p0 = T.init_params(cfg, device=device, seed=0)     # train_loop's init
-    still = sum(torch.equal(a, b) for a, b in zip(
-        pytree.tree_leaves(params), pytree.tree_leaves(p0)))
-    del p0
-    if still:
-        raise AssertionError(f"{still} parameter leaves did not move")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"wall_s": wall, "step_ms_each": step_ms, "step_ms": median_ms,
+           "tokens_per_s": tokens / median_ms * 1e3,
+           "tokens_per_s_wall_steps_2_8": (TRAIN_STEPS - 1) * tokens
+           / (stamps[-1] - stamps[0]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "loss": losses, "grad_norm": gnorms}
+    return out, params, state, made[0]
 
+
+def _enqueue_ms(torch, fn):
+    """The host's ms to queue ``fn()`` (the card runs meanwhile: where the
+    launch queue fills, this includes waiting for the card)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    ms = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    del out
+    return ms
+
+
+def train_full(torch, TL, TS, T, device):
+    """internlm2-1.8b at full width and depth through ``train_loop``:
+    fp32 params and AdamW moments, remat on, dense attention, 4 × 1,024
+    tokens a step from ``make_batch_iterator(seed=0)``, 8 steps, first
+    with the train function's eager step, then, after freeing that run,
+    through its CUDA graph (``make_train_fn``, the loop's own step); each
+    then one more step under the profiler, and one timed on the host.
+    The graph's losses and grad norms at steps 1 and 8 and its params
+    after step 8 equal the eager run's bit for bit."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_batch_iterator
+    cfg = get_arch(TRAIN_ARCH)
+    tc = TS.TrainConfig(lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
     it = make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
                              device="cpu")
     t = time.perf_counter()
@@ -1955,14 +1987,21 @@ def train_full(torch, TL, TS, T, device):
         next(it)
     data_ms = 1e3 * (time.perf_counter() - t) / TRAIN_STEPS
     batch = {k: v.to(device) for k, v in next(it).items()}
-    step = TS.make_train_step(cfg, tc)
-    dev_ms, launches, out = profile_step(
-        torch, lambda: step(params, state, batch))
+    rows = {}
+
+    eager, params, state, fn = _train_run(torch, TL, TS, cfg, tc, device,
+                                          eager=True)
+    p0 = T.init_params(cfg, device=device, seed=0)     # train_loop's init
+    still = sum(torch.equal(a, b) for a, b in zip(
+        pytree.tree_leaves(params), pytree.tree_leaves(p0)))
+    del p0
+    if still:
+        raise AssertionError(f"{still} parameter leaves did not move")
+    eager["device_ms_per_step"], eager["launches_per_step"], out = \
+        profile_step(torch, lambda: fn.eager(params, state, batch))
     del out
-    # the host's time to queue one step, and of it the forward and
-    # backward's (compute_grads); the card runs the step meanwhile, so
-    # where the launch queue fills this includes waiting for the card
-    grads_ms = []
+    # of the host's time to queue one step, the forward and backward's
+    compute_grads, grads_ms = TS.compute_grads, []
 
     def timed_grads(*a, **kw):
         t = time.perf_counter()
@@ -1972,39 +2011,64 @@ def train_full(torch, TL, TS, T, device):
 
     TS.compute_grads = timed_grads
     try:
-        t = time.perf_counter()
-        out = step(params, state, batch)
-        enqueue_ms = 1e3 * (time.perf_counter() - t)
+        eager["host_enqueue_ms"] = _enqueue_ms(
+            torch, lambda: fn.eager(params, state, batch))
     finally:
         TS.compute_grads = compute_grads
-    torch.cuda.synchronize()
-    del out
+    eager["host_enqueue_grads_ms"] = grads_ms[0]
     n_params = T.param_count(params)
+    want = [t.cpu() for t in pytree.tree_leaves(params)]
+    rows["eager"] = eager
+    del params, state, fn
+
+    graph, params, state, fn = _train_run(torch, TL, TS, cfg, tc, device,
+                                          eager=False)
+    for key in ("loss", "grad_norm"):
+        if graph[key] != eager[key]:
+            raise AssertionError(f"graph {key} at steps 1 and 8 "
+                                 f"{graph[key]} != eager {eager[key]}")
+    differ = sum(not torch.equal(a.cpu(), b) for a, b in zip(
+        pytree.tree_leaves(params), want))
+    del want
+    if differ:
+        raise AssertionError(f"{differ} param leaves of the graph differ "
+                             f"from the eager run's after 8 steps")
+    g = fn.last
+    if fn.captures != 1 or g is None:
+        raise AssertionError(f"{fn.captures} train graphs captured")
+    graph.update(nodes=g.nodes, kernel_nodes=g.kernels,
+                 capture_ms=1e3 * fn.capture_s)
+    graph["device_ms_per_step"], graph["launches_per_step"], out = \
+        profile_step(torch, lambda: fn(params, state, batch))
+    del out
+    graph["host_enqueue_ms"] = _enqueue_ms(
+        torch, lambda: fn(params, state, batch))
+    rows["graph"] = graph
+    for row in rows.values():
+        row["device_idle_share"] = 1 - row["device_ms_per_step"] / \
+            row["step_ms"]
     flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     emit("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
          params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
          steps=TRAIN_STEPS, dtype="fp32", remat=True, impl="dense",
-         wall_s=wall, step_ms_each=step_ms, step_ms=median_ms,
-         tokens_per_s=tokens / median_ms * 1e3,
-         tokens_per_s_wall_steps_2_8=(TRAIN_STEPS - 1) * tokens
-         / (stamps[-1] - stamps[0]), data_ms=data_ms,
-         peak_gb=peak_gb, state_gb_16B_per_param=16 * n_params / 1e9,
-         loss_first=losses[0], loss_last=losses[-1], grad_norm=gnorms,
-         device_ms_per_step=dev_ms, launches_per_step=launches,
-         host_enqueue_ms=enqueue_ms, host_enqueue_grads_ms=grads_ms[0],
-         device_idle_share=1 - dev_ms / median_ms,
+         data_ms=data_ms, static_gb_12B_per_param=12 * n_params / 1e9,
+         state_gb_16B_per_param=16 * n_params / 1e9,
+         graph_equals_eager="losses and grad norms at steps 1 and 8, "
+         "params after 8, bit for bit",
          tflop_per_step=flops / 1e12,
-         bound_ms=flops / PEAK_FLOPS["fp32"] * 1e3, bound_by="operations")
-    del params, state
+         bound_ms=flops / PEAK_FLOPS["fp32"] * 1e3, bound_by="operations",
+         **{f"{k}_{name}": v for name, row in rows.items()
+            for k, v in row.items()})
+    del params, state, fn
     torch.cuda.empty_cache()
 
 
 def train_vs_host(torch, TS, T, device):
     """internlm2-1.8b at full width with its depth cut to 2 layers, 2 × 128
     tokens: the same weights (made on the host from a seed, copied to the
-    card) and the same batches through three steps of ``make_train_step``
-    on the card and on the host."""
+    card) and the same batches through three steps of ``make_train_fn``
+    on the card (its first call eager, then two replays of its graph)
+    and of ``make_train_step`` on the host."""
     import dataclasses
     from torch.utils import _pytree as pytree
     from repro_torch.configs import get_arch
@@ -2016,13 +2080,14 @@ def train_vs_host(torch, TS, T, device):
     params_c = pytree.tree_map(lambda t: t.to(device), params_h)
     state_c = pytree.tree_map(lambda t: t.to(device), state_h)
     it = make_batch_iterator(cfg, 2, 128, seed=0, device=host)
+    fn = TS.make_train_fn(cfg, tc)
     step = TS.make_train_step(cfg, tc)
     rows = []
     for i in range(3):
         batch = next(it)
-        params_c, state_c, mc = step(params_c, state_c,
-                                     {k: v.to(device)
-                                      for k, v in batch.items()})
+        params_c, state_c, mc = fn(params_c, state_c,
+                                   {k: v.to(device)
+                                    for k, v in batch.items()})
         params_h, state_h, mh = step(params_h, state_h, batch)
         row = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
                for k in ("loss", "grad_norm")}
@@ -2033,8 +2098,12 @@ def train_vs_host(torch, TS, T, device):
     worst = _max_abs(torch, params_c, params_h)
     if worst > 5e-5:
         raise AssertionError(f"params differ by {worst} after 3 steps")
+    if fn.captures != 1 or fn.last is None:
+        raise AssertionError(f"{fn.captures} train graphs captured")
     emit("train_vs_host", arch=cfg.name, reduced="n_layers 24 -> 2",
          d_model=cfg.d_model, batch=2, seq=128, steps=3,
+         card_step="make_train_fn: 1 capture, 2 replays",
+         graph_kernel_nodes=fn.last.kernels,
          rel_diff_per_step=rows, params_max_abs=worst, tol_rel=1e-4,
          tol_params=5e-5)
 

@@ -34,8 +34,10 @@ def train_loop(cfg, tc: TS.TrainConfig, *, steps: int, batch: int,
                seq_len: int, ckpt_dir=None, ckpt_every: int = 100,
                seed: int = 0, log_every: int = 10, dtype=torch.float32,
                device=None, log=print):
-    """Returns (params, state, history).  The host reads the loss back
-    only at log steps (``float(loss)``), as the reference does."""
+    """Returns (params, state, history).  The step is
+    :func:`train.step.make_train_fn` (a CUDA graph on the card, the eager
+    step on the host).  The host reads the loss back only at log steps
+    (``float(loss)``), as the reference does."""
     device = T.default_device(device)
     params, state = TS.init_train_state(cfg, tc, seed=seed, device=device,
                                         dtype=dtype)
@@ -57,7 +59,10 @@ def train_loop(cfg, tc: TS.TrainConfig, *, steps: int, batch: int,
     # resumed run sees exactly the batches a straight run would have seen
     for _ in range(start_step):
         next(it)
-    step_fn = TS.make_train_step(cfg, tc)
+    # the reference's jitted step: one CUDA graph on the card, which
+    # updates params and state in place; the host draws batch i + 1
+    # while the card runs step i
+    step_fn = TS.make_train_fn(cfg, tc)
 
     def checkpoint(step):
         mgr.save(step, convert.stack_blocks(

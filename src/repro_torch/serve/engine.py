@@ -36,18 +36,19 @@ of every wave of a batch shape runs the same ops on the same shapes, and
 """
 from __future__ import annotations
 
-import ctypes
 import queue
 import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.graphs import (_capture_stream, _captured, _spec, _warmed,
+                                graph_kernel_names, graph_nodes)
 from repro_torch.kernels import build
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -150,109 +151,6 @@ def prefill_with_cache(params, cfg: ArchConfig, inputs, max_len: int, *,
     return logits, cache
 
 
-def _kernel_nodes(cu, graph: "torch.cuda.CUDAGraph") -> Tuple[int, list]:
-    """(nodes, the kernel nodes' handles) of a graph captured with
-    ``keep_graph=True``, read from its ``cudaGraph_t``."""
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    kind, kernels = ctypes.c_int(0), []
-    for node in nodes:
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                 ctypes.byref(kind)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        if kind.value == 0:                         # CU_GRAPH_NODE_TYPE_KERNEL
-            kernels.append(node)
-    return n.value, kernels
-
-
-def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Tuple[int, int]:
-    """(nodes, kernel nodes) of a graph captured with ``keep_graph=True``,
-    read with ``libcuda``'s ``cuGraphGetNodes``."""
-    n, kernels = _kernel_nodes(ctypes.CDLL("libcuda.so.1"), graph)
-    return n, len(kernels)
-
-
-class _KernelNodeParams(ctypes.Structure):
-    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``cuda.h``."""
-    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
-                ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
-                ("kernel_params", ctypes.c_void_p),
-                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
-                ("ctx", ctypes.c_void_p)]
-
-
-def graph_kernel_names(graph: "torch.cuda.CUDAGraph") -> Tuple[int, List[str]]:
-    """(nodes, the mangled function name of each kernel node) of a graph
-    captured with ``keep_graph=True``: what the graph launches, read from
-    the graph itself (``cuGraphKernelNodeGetParams`` and
-    ``cuFuncGetName``, or ``cuKernelGetName`` for a node that holds a
-    ``CUkernel``)."""
-    cu = ctypes.CDLL("libcuda.so.1")
-    n, kernels = _kernel_nodes(cu, graph)
-    names = []
-    for node in kernels:
-        p, name = _KernelNodeParams(), ctypes.c_char_p()
-        if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
-                                            ctypes.byref(p)) != 0:
-            raise RuntimeError("cuGraphKernelNodeGetParams failed")
-        if p.func:
-            err = cu.cuFuncGetName(ctypes.byref(name),
-                                   ctypes.c_void_p(p.func))
-        else:
-            err = cu.cuKernelGetName(ctypes.byref(name),
-                                     ctypes.c_void_p(p.kern))
-        if err != 0 or name.value is None:
-            raise RuntimeError(f"no name for a kernel node (CUDA error "
-                               f"{err})")
-        names.append(name.value.decode())
-    return n, names
-
-
-_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
-
-
-def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
-    """The one side stream on which every graph of ``dev`` (prefill and
-    decode) warms up and is captured.  cuBLAS keeps a workspace (32 MiB on
-    an H100) for each stream it has run on, for the life of the process:
-    a stream a graph would leave one behind with every server."""
-    if dev not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-    return _CAPTURE_STREAMS[dev]
-
-
-def _spec(tree) -> tuple:
-    return tuple((k, tuple(v.shape), v.dtype)
-                 for k, v in sorted(tree.items()))
-
-
-def _captured(stream: "torch.cuda.Stream", fn, pool=None):
-    """``fn()`` captured on ``stream`` into a new graph (in ``pool`` if
-    given), kept for :func:`graph_nodes` and instantiated.  Returns (graph,
-    what ``fn`` returned, the seconds taken).  An op that cannot be
-    captured raises its own error."""
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            out = fn()
-        except BaseException:
-            try:
-                graph.capture_end()
-            except RuntimeError:        # the error above invalidated it
-                pass
-            raise
-        graph.capture_end()
-    graph.instantiate()
-    return graph, out, time.perf_counter() - t0
-
-
 class PrefillGraph:
     """One prefill captured as a CUDA graph, for one key of its
     :class:`PrefillFn` (the params, the inputs' names, shapes and types).
@@ -286,13 +184,8 @@ class PrefillGraph:
     def capture(self, stream: "torch.cuda.Stream", pool):
         """The first prefill, eagerly on ``stream``, then the capture
         there.  Returns the first prefill's (logits, cache)."""
-        cur = torch.cuda.current_stream(stream.device)
-        stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
-            logits, cache = self._run(self.params, self.inputs)
-        cur.wait_stream(stream)
-        for t in (logits, *cache.values()):
-            t.record_stream(cur)
+        logits, cache = _warmed(
+            stream, lambda: self._run(self.params, self.inputs))
         torch.cuda.empty_cache()
         counters = build.COUNTERS
         before = [c.count for c in counters]
@@ -345,29 +238,26 @@ def _prefill_at(cfg: ArchConfig, max_len: int, impl, chunk, cache_dtype,
 
 # prefill graphs a function keeps: each holds its outputs
 MAX_PREFILL_GRAPHS = 4
+# decode graphs a function keeps: each holds its cache
+MAX_DECODE_GRAPHS = 4
 
 
-class PrefillFn:
-    """:func:`make_prefill_fn`'s result, ``prefill(params, inputs) ->
-    (logits, cache)``.  ``eager(params, inputs)`` is the prefill run op by
-    op at this function's settings; ``graphs`` maps each key to its
-    :class:`PrefillGraph`, the least recently used first; ``last`` is the
-    graph of the last call (None on the host); ``pool`` is the memory pool
-    its graphs share; ``captures`` and ``capture_s`` count the graphs it
-    captured and the seconds that took, evicted graphs included."""
+class _GraphCache:
+    """The graphs a graph function keeps (``graphs``, the least recently
+    used first, at most ``limit``) and the graph of its last call
+    (``last``, None on the host).  A graph holds the params tree it was
+    captured with (its ``params``), and the function keeps the graphs of
+    one tree only: the reference's jitted functions take the params as an
+    argument and hold none, so a caller who drops a tree expects its
+    memory back."""
 
-    def __init__(self, cfg: ArchConfig, max_len: int, *, impl, chunk,
-                 cache_dtype, last_only):
-        self.cfg = cfg
-        self.eager = _prefill_at(cfg, max_len, impl, chunk, cache_dtype,
-                                 last_only)
-        self.graphs: "OrderedDict[tuple, PrefillGraph]" = OrderedDict()
-        self.last: Optional[PrefillGraph] = None
-        self.pool = None
-        self.captures = 0
-        self.capture_s = 0.0
+    limit: int
 
-    def _graph(self, key) -> Optional[PrefillGraph]:
+    def __init__(self):
+        self.graphs: "OrderedDict[tuple, Any]" = OrderedDict()
+        self.last = None
+
+    def _graph(self, key):
         g = self.graphs.get(key)
         if g is not None:
             self.graphs.move_to_end(key)
@@ -376,8 +266,39 @@ class PrefillFn:
     def _make_room(self) -> None:
         """Drop the least recently used graphs until one more fits; their
         outputs go back to the pool, for the next capture."""
-        while len(self.graphs) >= MAX_PREFILL_GRAPHS:
+        while len(self.graphs) >= self.limit:
             self.graphs.popitem(last=False)
+
+    def _keep_params(self, params) -> None:
+        """Drop the graphs of every params tree but ``params``, so that a
+        call with a new tree leaves one tree alive, not two."""
+        for key in [k for k, g in self.graphs.items()
+                    if g.params is not params]:
+            del self.graphs[key]
+        if self.last is not None and self.last.params is not params:
+            self.last = None
+
+
+class PrefillFn(_GraphCache):
+    """:func:`make_prefill_fn`'s result, ``prefill(params, inputs) ->
+    (logits, cache)``.  ``eager(params, inputs)`` is the prefill run op by
+    op at this function's settings; ``graphs`` maps each key to its
+    :class:`PrefillGraph`, the least recently used first; ``last`` is the
+    graph of the last call (None on the host); ``pool`` is the memory pool
+    its graphs share; ``captures`` and ``capture_s`` count the graphs it
+    captured and the seconds that took, evicted graphs included."""
+
+    limit = MAX_PREFILL_GRAPHS
+
+    def __init__(self, cfg: ArchConfig, max_len: int, *, impl, chunk,
+                 cache_dtype, last_only):
+        super().__init__()
+        self.cfg = cfg
+        self.eager = _prefill_at(cfg, max_len, impl, chunk, cache_dtype,
+                                 last_only)
+        self.pool = None
+        self.captures = 0
+        self.capture_s = 0.0
 
     @torch.inference_mode()
     def __call__(self, params, inputs):
@@ -385,6 +306,7 @@ class PrefillFn:
         if dev.type != "cuda":
             self.last = None
             return self.eager(params, inputs)
+        self._keep_params(params)
         # the graph holds ``params``, so their id stays theirs
         key = (id(params), dev, _spec(inputs))
         g = self._graph(key)
@@ -393,7 +315,7 @@ class PrefillFn:
             return g.replay(inputs)
         self.last = None
         self._make_room()
-        if self.pool is None:
+        if not self.graphs:             # a pool goes with its last graph
             self.pool = torch.cuda.graph_pool_handle()
         g = PrefillGraph(params, inputs, self.eager)
         first = g.capture(_capture_stream(dev), self.pool)
@@ -417,7 +339,9 @@ def make_prefill_fn(cfg: ArchConfig, max_len: int, *, impl="dense",
     jit's cache does.  A key's first call runs the prefill eagerly and
     returns that result, then captures the graph; later calls replay it.
     A graph holds its outputs, so the function keeps the
-    :data:`MAX_PREFILL_GRAPHS` most recently used and drops the rest.
+    :data:`MAX_PREFILL_GRAPHS` most recently used and drops the rest; a
+    graph holds its params too, so a call with another params tree drops
+    the graphs of every tree before it.
 
     A replay's logits and cache alias the graph's static outputs, which
     the next replay of that key overwrites; all graphs of one function
@@ -459,13 +383,8 @@ class DecodeGraph:
         """The first step, eagerly on ``stream``, then the capture there.
         Returns the first step's logits."""
         cache = dict(self.cache)
-        cur = torch.cuda.current_stream(stream.device)
-        stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
-            first, _ = T.decode_step(self.params, self.cfg, self.cache,
-                                     self.inputs)
-        cur.wait_stream(stream)
-        first.record_stream(cur)
+        first, _ = _warmed(stream, lambda: T.decode_step(
+            self.params, self.cfg, self.cache, self.inputs))
         for name, t in cache.items():
             if self.cache[name] is not t:
                 raise RuntimeError(
@@ -491,16 +410,17 @@ class DecodeGraph:
         return self.logits, self.cache
 
 
-class DecodeFn:
+class DecodeFn(_GraphCache):
     """:func:`make_decode_fn`'s result, ``decode(params, cache, inputs) ->
     (logits, cache)``.  ``graphs`` maps each key to its
-    :class:`DecodeGraph`; ``last`` is the graph of the last call (None on
-    the host)."""
+    :class:`DecodeGraph`, the least recently used first; ``last`` is the
+    graph of the last call (None on the host)."""
+
+    limit = MAX_DECODE_GRAPHS
 
     def __init__(self, cfg: ArchConfig):
+        super().__init__()
         self.cfg = cfg
-        self.graphs: Dict[tuple, DecodeGraph] = {}
-        self.last: Optional[DecodeGraph] = None
 
     @torch.inference_mode()
     def __call__(self, params, cache, inputs):
@@ -509,10 +429,13 @@ class DecodeFn:
             self.last = None
             return T.decode_step(params, self.cfg, cache, inputs)
         inputs = {k: torch.as_tensor(v) for k, v in inputs.items()}
+        self._keep_params(params)
         # the graph holds ``params``, so their id stays theirs
         key = (id(params), _spec(cache), _spec(inputs))
-        g = self.graphs.get(key)
+        g = self._graph(key)
         if g is None:
+            self.last = None
+            self._make_room()
             g = DecodeGraph(params, self.cfg, cache, inputs)
             first = g.capture(_capture_stream(dev))
             self.graphs[key] = self.last = g
@@ -529,7 +452,9 @@ def make_decode_fn(cfg: ArchConfig) -> DecodeFn:
     plain version).  On the card it keeps one captured CUDA graph a key
     (batch shape, cache shapes and types, input shapes), as jit's cache
     does, and replays it: ``inputs["length"]`` is best a 0-d tensor on
-    the device, as the reference's server passes it.  The returned cache
+    the device, as the reference's server passes it.  It keeps the
+    :data:`MAX_DECODE_GRAPHS` most recently used graphs, of the last
+    params tree it was called with only.  The returned cache
     is the graph's static cache: pass it back on the next step.  The
     returned logits alias the graph's static output buffer, which the
     next step overwrites: a caller who keeps them across steps must clone

@@ -16,17 +16,25 @@ optimizer, ported from ``repro.train.step``.
 Gradients come from ``torch.autograd.grad`` over leaves detached from the
 caller's tensors, so a step never mutates its inputs: it returns new
 params and a new state, as the reference's jitted step does.
+
+The reference jits that step (``repro/launch/train.py:57``); its
+counterpart here is :func:`make_train_fn`, one captured CUDA graph a
+batch shape on the card, which updates the params and the optimizer
+state in place, as a jitted step with donated arguments does.  The
+int8 step and the GPipe step (``train/pipeline.py``) stay eager.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.graphs import (_capture_stream, _captured, _spec, _warmed,
+                                graph_nodes)
 from repro_torch.models import convert
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -264,6 +272,153 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
                       group)
 
     return train_step
+
+
+def _in_place(step, params, state):
+    """``run(batch) -> metrics``: ``step(params, state, batch)``, whose
+    new params and state are then copied into the leaves of ``params``
+    and ``state``.  Those two trees are the only ones that outlive a
+    call: the new trees are transients, freed as ``run`` returns."""
+    own = pytree.tree_leaves((params, state))
+
+    def run(batch):
+        new_params, new_state, metrics = step(params, state, batch)
+        torch._foreach_copy_(own, pytree.tree_leaves((new_params,
+                                                      new_state)))
+        return metrics
+
+    return run
+
+
+class TrainGraph:
+    """One train step captured as a CUDA graph, for one key of its
+    :class:`TrainFn` (the batch's names, shapes and types).  It owns a
+    static buffer for each batch entry; the params and the optimizer
+    state are its function's buffers, which the step reads and then
+    overwrites with their new values (:func:`_in_place`); its metrics lie
+    in the memory pool that all graphs of its function share.
+
+    Made by the first call of its key, which then calls :meth:`capture`,
+    as ``serve.engine.DecodeGraph`` is: the step runs eagerly on the
+    static buffers on the one capture stream (the warm-up of cuBLAS, the
+    allocator and autograd on that stream, and that call's real step,
+    params updated); the blocks the warm-up freed go back to the device,
+    since the graph's pool cannot use them (beside the new pool they
+    would hold a second step's transients); then the step is captured,
+    which executes nothing.  A second warm-up step would advance the
+    params twice.  Later calls of the key replay the graph.  A step that
+    syncs with the host or does anything else a graph cannot hold raises
+    at its capture, after the warm-up's step: nothing falls back to the
+    eager step on the card."""
+
+    def __init__(self, batch, run):
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self._run = run
+
+    def capture(self, stream: "torch.cuda.Stream", pool):
+        """The first step, eagerly on ``stream``, then the capture there.
+        Returns the first step's metrics."""
+        first = _warmed(stream, lambda: self._run(self.batch))
+        torch.cuda.empty_cache()
+        self.graph, self.metrics, self.capture_s = _captured(
+            stream, lambda: self._run(self.batch), pool)
+        self.nodes, self.kernels = graph_nodes(self.graph)
+        return first
+
+    def replay(self, batch):
+        for k, v in batch.items():
+            if v is not self.batch[k]:
+                self.batch[k].copy_(v)
+        self.graph.replay()
+        return dict(self.metrics)
+
+
+class TrainFn:
+    """:func:`make_train_fn`'s result, ``step(params, state, batch) ->
+    (params, state, metrics)``.  ``eager`` is :func:`make_train_step` at
+    this function's settings, which mutates nothing; ``graphs`` maps each
+    key to its :class:`TrainGraph`; ``last`` is the graph of the last
+    call (None on the host); ``pool`` is the memory pool its graphs
+    share; ``captures`` and ``capture_s`` count the graphs it captured
+    and the seconds that took; ``params`` and ``state`` are its buffers
+    on the card (None before its first call there)."""
+
+    def __init__(self, cfg: ArchConfig, tc: TrainConfig, rules=None):
+        self.eager = make_train_step(cfg, tc, rules)
+        self.graphs: Dict[tuple, TrainGraph] = {}
+        self.last: Optional[TrainGraph] = None
+        self.pool = None
+        self.captures = 0
+        self.capture_s = 0.0
+        self.params = self.state = None
+        self._run = None
+
+    def _load(self, params, state) -> None:
+        """Make ``(params, state)`` this function's buffers: the first
+        tree is adopted as it is, a later one's leaves copied in where
+        they are not the buffers themselves."""
+        if self._run is None:
+            own, spec = pytree.tree_flatten((params, state))
+            self.params, self.state = pytree.tree_unflatten(own, spec)
+            self._run = _in_place(self.eager, self.params, self.state)
+            return
+        own, spec = pytree.tree_flatten((self.params, self.state))
+        new, new_spec = pytree.tree_flatten((params, state))
+        if new_spec != spec:
+            raise ValueError("params and state of another structure than "
+                             "this function's")
+        for o, n in zip(own, new):
+            if n is not o:
+                if n.shape != o.shape or n.dtype != o.dtype:
+                    raise ValueError(f"a leaf of shape {tuple(n.shape)} "
+                                     f"{n.dtype} for one of "
+                                     f"{tuple(o.shape)} {o.dtype}")
+                o.copy_(n)
+
+    def __call__(self, params, state, batch):
+        dev = next(iter(batch.values())).device
+        if dev.type != "cuda":
+            self.last = None
+            return self.eager(params, state, batch)
+        self._load(params, state)
+        key = (dev, _spec(batch))
+        g = self.graphs.get(key)
+        if g is not None:
+            self.last = g
+            return self.params, self.state, g.replay(batch)
+        self.last = None
+        if not self.graphs:             # a pool goes with its last graph
+            self.pool = torch.cuda.graph_pool_handle()
+        g = TrainGraph(batch, self._run)
+        first = g.capture(_capture_stream(dev), self.pool)
+        self.graphs[key] = self.last = g
+        self.captures += 1
+        self.capture_s += g.capture_s
+        return self.params, self.state, first
+
+
+def make_train_fn(cfg: ArchConfig, tc: TrainConfig,
+                  rules: Optional[T.ShardRules] = None) -> TrainFn:
+    """The counterpart of the reference's jitted train step,
+    ``step(params, state, batch) -> (params, state, metrics)``.
+
+    On a CPU batch it is :func:`make_train_step`, eager.  On the card it
+    keeps one captured CUDA graph a key (the batch's names, shapes and
+    types: tokens and labels, codebooks, or qwen2-vl's embeds with
+    positions (3, B, S)), as jit's cache does.  A key's first call runs
+    the step eagerly and returns that result, then captures the graph;
+    later calls replay it.
+
+    The params and the optimizer state are donated, as with jit's
+    ``donate_argnums``: the first call on the card adopts the caller's
+    leaves, without a copy, as this function's buffers, and every step
+    overwrites them with their new values inside the graph.  Each call
+    returns those same trees, and metrics that alias the graph's static
+    outputs, which the next call overwrites: read them, or clone them,
+    before it.  A call with other leaves (a resumed checkpoint) copies
+    them into the buffers; the function keeps no second tree.  A capture
+    that cannot be made raises, after the warm-up's step was applied."""
+    return TrainFn(cfg, tc, rules)
 
 
 def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group,

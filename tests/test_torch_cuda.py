@@ -1077,7 +1077,9 @@ def test_cuda_prefill_graph_launches_count_replays(sm90_device):
 
 def test_cuda_prefill_graph_new_params_capture_again(sm90_device):
     """The graph holds the params it was captured with: a new params tree
-    captures a second graph, and each tree's replays are right."""
+    captures a graph of its own and drops the other tree's (ROADMAP C9),
+    so trees A, B, A capture three times and keep one graph; each call is
+    right."""
     from repro_torch.serve import make_prefill_fn
     cfg = get_arch("internlm2-1.8b").reduced()
     trees = [TT.init_params(cfg, device=sm90_device, seed=s) for s in (7, 8)]
@@ -1085,7 +1087,8 @@ def test_cuda_prefill_graph_new_params_capture_again(sm90_device):
     inp = _prefill_inputs(cfg, 24, 0, sm90_device)
     for params in (*trees, trees[0]):
         _assert_prefill_is(prefill(params, inp), prefill, params, inp)
-    assert len(prefill.graphs) == 2
+        assert prefill.last.params is params
+    assert len(prefill.graphs) == 1 and prefill.captures == 3
 
 
 def test_cuda_prefill_graph_capture_that_syncs_raises(sm90_device,
@@ -1227,3 +1230,183 @@ def test_cuda_prefill_graph_freed_with_its_function(sm90_device):
         assert torch.cuda.memory_allocated(sm90_device) == base
     finally:
         gc.enable()
+
+
+def test_cuda_graph_functions_free_a_dropped_params_tree(sm90_device):
+    """ROADMAP C9 on the card: a prefill and a decode function called with
+    tree A, A dropped by the caller, then called with tree B, hold B's
+    graphs only.  internlm2-1.8b at full width cut to 2 layers (1.6 GB of
+    params, against a few MB of graph outputs): the allocation comes back
+    to what fresh functions called with B alone hold, A is freed, and
+    every call is right."""
+    import dataclasses
+    import weakref
+    from torch.utils import _pytree as pytree
+    from repro_torch.serve import make_decode_fn, make_prefill_fn
+    from repro_torch.serve.engine import prefill_with_cache
+    cfg = dataclasses.replace(get_arch("internlm2-1.8b"), n_layers=2)
+    inp = _prefill_inputs(cfg, 32, 0, sm90_device)
+    step = _step_inputs(cfg, 1, 32, sm90_device)
+
+    def serve(prefill, decode, params):
+        _assert_prefill_is(prefill(params, inp), prefill, params, inp)
+        with torch.inference_mode():
+            _, cache = prefill_with_cache(params, cfg, inp, max_len=40,
+                                          impl="kernel")
+            want, _ = TT.decode_step(
+                params, cfg, {k: v.clone() for k, v in cache.items()}, step)
+            got, _ = decode(params, cache, step)
+            assert torch.equal(got, want)
+        assert prefill.last.params is params
+        assert decode.last.params is params
+
+    def functions():
+        return (make_prefill_fn(cfg, 40, impl="kernel", last_only=True),
+                make_decode_fn(cfg))
+
+    b = TT.init_params(cfg, device=sm90_device, seed=2)
+    serve(*functions(), b)                       # warms cuBLAS and the rest
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(sm90_device)
+    fns = functions()
+    serve(*fns, b)
+    torch.cuda.synchronize()
+    b_alone = torch.cuda.memory_allocated(sm90_device) - base
+    del fns
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(sm90_device) <= base + 8 * 2 ** 20
+    a = TT.init_params(cfg, device=sm90_device, seed=3)
+    tree = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(a))
+    gone = weakref.ref(a["embed"])
+    fns = functions()
+    serve(*fns, a)
+    del a
+    serve(*fns, b)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(sm90_device) - base
+    assert gone() is None
+    assert all(len(f.graphs) == 1 for f in fns)
+    assert held <= b_alone + 8 * 2 ** 20, (held, b_alone)
+    assert b_alone + 8 * 2 ** 20 < tree
+
+
+# ---------------------------------------------------------------------------
+# the train step as one CUDA graph a batch shape, params and optimizer
+# state updated in place inside it
+# ---------------------------------------------------------------------------
+
+
+def _card_batches(batches, device):
+    return [{k: v.to(device) for k, v in b.items()} for b in batches]
+
+
+@pytest.mark.parametrize("arch,micro", [("internlm2-1.8b", 1),
+                                        ("mamba2-130m", 1),
+                                        ("qwen3-moe-235b-a22b", 1),
+                                        ("internlm2-1.8b", 2)])
+def test_cuda_train_graph_is_the_eager_step(sm90_device, arch, micro):
+    """``make_train_fn`` on the card against its eager step
+    (``make_train_step``) from the same params and state on the same 3
+    batches: the first call (the eager warm-up on the capture stream)
+    and two replays, every metric, and then every param and state leaf,
+    bit for bit; one graph, whose returned trees are the function's own
+    buffers, with ``state["step"]`` at 3."""
+    from torch.utils import _pytree as pytree
+    cfg, tc, TS, batches = _train_setup(arch, microbatches=micro)
+    fn = TS.make_train_fn(cfg, tc)
+    pe, se = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    pg, sg = pytree.tree_map(torch.clone, (pe, se))
+    own = pytree.tree_leaves((pg, sg))
+    for i, b in enumerate(_card_batches(batches, sm90_device)):
+        pe, se, want = fn.eager(pe, se, b)
+        pg, sg, got = fn(pg, sg, b)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+        assert pytree.tree_leaves((pg, sg)) == own
+    for a, b in zip(own, pytree.tree_leaves((pe, se))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(sg["step"]) == 3
+    assert len(fn.graphs) == 1 and fn.captures == 1
+    g = fn.last
+    assert g.capture_s > 0 and g.nodes >= g.kernels > 0
+
+
+def test_cuda_train_graph_copies_a_foreign_tree_in(sm90_device):
+    """Reduced internlm2-1.8b: after two steps of tree A, a call with tree
+    B (another seed's params and state, as a resume brings) copies B into
+    the function's buffers and steps it: the result equals the eager step
+    of B bit for bit, the returned leaves stay the function's, and the
+    function keeps no reference to B's leaves."""
+    import weakref
+    from torch.utils import _pytree as pytree
+    cfg, tc, TS, batches = _train_setup()
+    batches = _card_batches(batches, sm90_device)
+    fn = TS.make_train_fn(cfg, tc)
+    pa, sa = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    for b in batches[:2]:
+        pa, sa, _ = fn(pa, sa, b)
+    own = pytree.tree_leaves((pa, sa))
+    pb, sb = TS.init_train_state(cfg, tc, seed=2, device=sm90_device)
+    pw, sw, want = fn.eager(pb, sb, batches[2])
+    gone = weakref.ref(pb["embed"])
+    p, s, got = fn(pb, sb, batches[2])
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert pytree.tree_leaves((p, s)) == own
+    for a, b in zip(own, pytree.tree_leaves((pw, sw))):
+        assert torch.equal(a, b)
+    del pb, sb
+    assert gone() is None
+    assert len(fn.graphs) == 1
+
+
+def test_cuda_train_graph_capture_that_syncs_raises(sm90_device,
+                                                    monkeypatch):
+    """A step that reads its loss on the host (``compute_grads`` patched
+    to call ``.item()``) runs in the eager warm-up but cannot be
+    captured: the call raises, no graph is kept, no result comes back
+    from an eager fallback, and the card goes on working."""
+    cfg, tc, TS, batches = _train_setup()
+    compute_grads = TS.compute_grads
+
+    def syncing(*args, **kwargs):
+        grads, metrics = compute_grads(*args, **kwargs)
+        metrics["loss"].item()
+        return grads, metrics
+
+    monkeypatch.setattr(TS, "compute_grads", syncing)
+    fn = TS.make_train_fn(cfg, tc)
+    params, state = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    with pytest.raises(RuntimeError):
+        fn(params, state, _card_batches(batches, sm90_device)[0])
+    assert fn.graphs == {} and fn.last is None
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    x = torch.ones(4, device=sm90_device)
+    assert float((x + 1).sum()) == 8.0
+
+
+def test_cuda_train_graph_resume_equals_a_straight_run(sm90_device,
+                                                       tmp_path):
+    """``train_loop`` on the card, through the graph: reduced mamba2-130m,
+    4 steps with a checkpoint, resumed to 8 (the restored trees copied
+    into a new function's buffers), against a straight run to 8, params
+    and state within 1e-6 (``chip_smoke.py``'s ``train_resume``)."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch import train as TL
+    from repro_torch.train import step as TS
+    cfg = get_arch("mamba2-130m").reduced()
+    tc = TS.TrainConfig(lr=1e-3, warmup=2, total_steps=8)
+    kw = dict(batch=2, seq_len=32, device=sm90_device, log=lambda _: None)
+    d = str(tmp_path / "ck")
+    TL.train_loop(cfg, tc, steps=4, ckpt_dir=d, ckpt_every=4, **kw)
+    logs = []
+    res = TL.train_loop(cfg, tc, steps=8, ckpt_dir=d, ckpt_every=4,
+                        **{**kw, "log": logs.append})
+    assert "resumed from step 4" in logs
+    straight = TL.train_loop(cfg, tc, steps=8, **kw)
+    assert int(res[1]["step"]) == int(straight[1]["step"]) == 8
+    for a, b in zip(pytree.tree_leaves(res[:2]),
+                    pytree.tree_leaves(straight[:2])):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)

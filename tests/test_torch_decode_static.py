@@ -235,3 +235,58 @@ def test_batch_server_checks_the_position_on_the_host(arch, raises):
     else:
         done = server.run(max_requests=1, idle_timeout_s=0.5)
         assert len(done[0].result_tokens) == 5
+
+
+def _stub_graphs(fn, trees):
+    """``fn.graphs`` holding a stand-in graph a (key, params tree), as the
+    card's calls leave them (the graph keeps the tree it was captured
+    with)."""
+    from types import SimpleNamespace
+    for key, tree in trees:
+        fn.graphs[key] = SimpleNamespace(params=tree)
+
+
+@pytest.mark.parametrize("make", ["decode", "prefill"])
+def test_graph_functions_keep_one_params_tree(make):
+    """ROADMAP C9, the bookkeeping of the card's path with stand-ins for
+    the graphs: a call with tree B drops the graphs of every other tree
+    (and ``last``, if it is one of them), so once the caller drops tree A
+    nothing holds it; the graphs of B stay, in their order."""
+    import gc
+    import weakref
+    from repro_torch.serve import make_prefill_fn
+    tcfg = tconfigs.get_arch("internlm2-1.8b").reduced()
+    fn = (make_decode_fn(tcfg) if make == "decode"
+          else make_prefill_fn(tcfg, 16, impl="kernel"))
+    a, b = {"w": torch.zeros(3)}, {"w": torch.ones(3)}
+    gone = weakref.ref(a["w"])
+    _stub_graphs(fn, [("a1", a), ("b1", b), ("a2", a), ("b2", b)])
+    fn.last = fn.graphs["a2"]
+    del a
+    gc.disable()
+    try:
+        fn._keep_params(b)
+        assert gone() is None
+    finally:
+        gc.enable()
+    assert list(fn.graphs) == ["b1", "b2"] and fn.last is None
+    fn.last = fn.graphs["b2"]
+    fn._keep_params(b)
+    assert list(fn.graphs) == ["b1", "b2"] and fn.last is fn.graphs["b2"]
+
+
+def test_decode_fn_keeps_the_most_recently_used_graphs():
+    """A decode function keeps at most ``MAX_DECODE_GRAPHS`` graphs (each
+    holds its cache): a new key drops the least recently used first, and
+    a replayed key becomes the most recently used."""
+    from repro_torch.serve.engine import MAX_DECODE_GRAPHS
+    decode = make_decode_fn(tconfigs.get_arch("internlm2-1.8b").reduced())
+    keys = list(range(MAX_DECODE_GRAPHS))
+    for key in keys:
+        decode._make_room()
+        decode.graphs[key] = object()
+    assert decode._graph(0) is not None             # 0 used last now
+    decode._make_room()
+    decode.graphs["new"] = object()
+    assert list(decode.graphs) == [*keys[2:], 0, "new"]
+    assert decode._graph(1) is None
