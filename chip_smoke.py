@@ -24,6 +24,15 @@ closed loop, each held against the same processor on the host; and
 ``repro_torch.examples.edge_to_cloud_outlier`` (advise, paced k-means
 through the kernel with an injected fault, hot-swap to the auto-encoder,
 autoscaling).  These paths launch no kernel of their own beyond k-means.
+The three models run through their compiled functions
+(``repro_torch.graphs.GraphFn``: one CUDA graph a key, the k-means kernel
+inside its graphs, the forest's generator seeded again before every
+replay): each loop (``pipeline``, ``ae_pipeline``, ``iforest_pipeline``)
+runs op by op and then through the graphs, with msgs/s, the profiler's
+device ms, kernels and host launches a message, captures and their ms,
+and the memory the graphs hold; ``kmeans_vs_eager``, ``ae_vs_eager`` and
+``iforest_vs_eager`` hold 8 seeded messages through the graphs against
+the eager functions on the card, bit for bit.
 
 Last, training: internlm2-1.8b at full width and depth (24 layers, 1.89 B
 fp32 parameters, AdamW, remat, dense attention) for 8 steps of 4 × 1,024
@@ -508,9 +517,12 @@ def time_kernels(torch, kk, ops, device):
 def run_pipeline(torch, core, ml, kk, device):
     """The quickstart's loop through the port on the card: the training
     processor on 64 messages of 10,000 points under the threaded
-    executor, then an inference processor that fetches the published
-    centroids.  Each is driven with the launch counts set to 0 just before
-    it and read just after."""
+    executor, op by op (``graph=False``) and then through the compiled
+    ``assign_update_fn`` (one CUDA graph, the kernel inside it), then an
+    inference processor through ``assign_fn`` that fetches the published
+    centroids.  Each is driven with the launch counts set to 0 just
+    before it and read just after; the graph runs are the main path's.
+    Then each processor's CUDA work a message (``profile_messages``)."""
     manager = core.PilotManager()
     edge = manager.submit_pilot(core.ComputeResource(
         tier="edge", n_workers=4, memory_gb=4))
@@ -518,16 +530,14 @@ def run_pipeline(torch, core, ml, kk, device):
         tier="cloud", n_devices=1, n_workers=4, memory_gb=44))
     if cloud.devices[0] != device:
         raise AssertionError(f"cloud pilot got {cloud.devices}")
-    kmeans = ml.KMeans(n_clusters=25, n_features=32,
-                       device=cloud.devices[0])
-    params = core.ParameterService()
-    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], n_clusters=25,
-                              seed=7)
+    fns = outlier_graph_fns()
 
     def process_edge(context, data=None):
         return data[np.isfinite(data).all(axis=1)]
 
     def pipeline(handler, n_messages):
+        gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], n_clusters=25,
+                                  seed=7)
         return core.EdgeToCloudPipeline(
             pilot_cloud_processing=cloud, pilot_edge=edge,
             produce_function_handler=gen.make_producer(),
@@ -536,47 +546,72 @@ def run_pipeline(torch, core, ml, kk, device):
             function_context={"model": "kmeans", "n_clusters": 25},
         ).run(n_messages=n_messages)
 
+    runs = {False: [], True: []}
+    for graph in TURNS:
+        kmeans = ml.KMeans(n_clusters=25, n_features=32,
+                           device=cloud.devices[0], graph=graph)
+        params = core.ParameterService()
+        meter = GraphMeter(torch, fns)
+        for counter in kk.LAUNCHES.values():
+            counter.reset()
+        res = pipeline(kmeans.make_processor(params, "kmeans", train=True),
+                       N_MESSAGES)
+        torch.cuda.synchronize()
+        launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+        stats = meter.read()
+        if res.n_processed != N_MESSAGES:
+            raise AssertionError(f"processed {res.n_processed}/{N_MESSAGES}")
+        if launches["kmeans_assign_update"] < N_MESSAGES:
+            raise AssertionError(f"fused kernel launched "
+                                 f"{launches['kmeans_assign_update']} "
+                                 f"times for {N_MESSAGES} messages")
+        if (stats["captures"] + stats["replays"] >= N_MESSAGES) != graph:
+            raise AssertionError(f"graph={graph}: {stats}")
+        # the processor's state is shared by the cloud stage's worker
+        # threads without a lock (as in the reference), so an update may be
+        # lost and the counts only bound the points seen
+        version, tree = params.fetch("kmeans")
+        if version != N_MESSAGES or tree["centroids"].shape != (25, 32) \
+                or not np.isfinite(tree["centroids"]).all() \
+                or not 0 < tree["counts"].sum() <= N_MESSAGES * MAIN_SHAPE[0]:
+            raise AssertionError("published k-means state is wrong")
+        for r in res.results:
+            if not (np.isfinite(r["mean_score"]) and r["n_outliers"] >= 0):
+                raise AssertionError(f"bad result {r}")
+        runs[graph].append((res, launches, stats, version, params))
+    res, train_launches, _, version, params = runs[True][-1]
+    stats, stats_e = runs[True][0][2], runs[False][0][2]
+
+    meter = GraphMeter(torch, fns)
     for counter in kk.LAUNCHES.values():
         counter.reset()
-    res = pipeline(kmeans.make_processor(params, "kmeans", train=True),
-                   N_MESSAGES)
+    res_inf = pipeline(ml.KMeans(device=device).make_processor(
+        params, "kmeans", train=False), 8)
     torch.cuda.synchronize()
-    train_launches = {name: c.count for name, c in kk.LAUNCHES.items()}
-    if res.n_processed != N_MESSAGES:
-        raise AssertionError(f"processed {res.n_processed}/{N_MESSAGES}")
-    if train_launches["kmeans_assign_update"] < N_MESSAGES:
-        raise AssertionError(f"fused kernel launched "
-                             f"{train_launches['kmeans_assign_update']} "
-                             f"times for {N_MESSAGES} messages")
-    # the processor's state is shared by the cloud stage's worker threads
-    # without a lock (as in the reference), so an update may be lost and
-    # the counts only bound the points seen
-    version, tree = params.fetch("kmeans")
-    if version != N_MESSAGES or tree["centroids"].shape != (25, 32) \
-            or not np.isfinite(tree["centroids"]).all() \
-            or not 0 < tree["counts"].sum() <= N_MESSAGES * MAIN_SHAPE[0]:
-        raise AssertionError("published k-means state is wrong")
-    for r in res.results:
-        if not (np.isfinite(r["mean_score"]) and r["n_outliers"] >= 0):
-            raise AssertionError(f"bad result {r}")
+    infer_launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    infer_stats = meter.read()
+    if res_inf.n_processed != 8 or infer_launches["kmeans_assign"] < 8 \
+            or infer_stats["captures"] + infer_stats["replays"] < 8:
+        raise AssertionError(f"inference run: {res_inf.n_processed} "
+                             f"processed, launches {infer_launches}, "
+                             f"{infer_stats}")
+    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=9)
+    msgs = [gen.sample() for _ in range(8)]
+    prof = {}
+    for graph in (False, True):
+        proc = ml.KMeans(device=device, graph=graph).make_processor()
+        prof["graph" if graph else "eager"] = profile_messages(
+            torch, lambda m: proc(None, data=m), msgs)
     tp = res.throughput()
     emit("pipeline", n_processed=res.n_processed, n_produced=res.n_produced,
          wall_s=res.wall_s, msgs_per_s=tp["msgs_per_s"],
          bytes_per_s=tp["bytes_per_s"], params_version=version,
-         launches=train_launches)
-
-    for counter in kk.LAUNCHES.values():
-        counter.reset()
-    res_inf = pipeline(kmeans.make_processor(params, "kmeans", train=False),
-                       8)
-    torch.cuda.synchronize()
-    infer_launches = {name: c.count for name, c in kk.LAUNCHES.items()}
-    if res_inf.n_processed != 8 or infer_launches["kmeans_assign"] < 8:
-        raise AssertionError(f"inference run: {res_inf.n_processed} "
-                             f"processed, launches {infer_launches}")
+         launches=train_launches, **loop_rates(runs), graph=stats,
+         eager=stats_e,
+         kernel_nodes_per_msg=kernel_nodes([fns[1]]), profile=prof)
     emit("pipeline_inference", n_processed=res_inf.n_processed,
          msgs_per_s=res_inf.throughput()["msgs_per_s"],
-         launches=infer_launches)
+         launches=infer_launches, graph=infer_stats)
     manager.release_all()
     return {"kmeans_assign_update": train_launches["kmeans_assign_update"],
             "kmeans_assign": infer_launches["kmeans_assign"]}
@@ -1473,29 +1508,221 @@ def check_against_plain_path(torch, core, ml, device):
                                        - tb["centroids"]).max()))
 
 
+# the runtime calls that launch a kernel, as the profiler names them
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+
+
 def profile_messages(torch, fn, msgs):
     """The CUDA work of ``fn(msg)`` per message, from ``torch.profiler``
-    over one call per message after a warm-up call: ``(device_ms,
-    launches)``, the kernels' device time and the number of kernels (copies
-    and fills not counted).  Raises where the profiler records no device
-    kernel: the work did not run on the card."""
+    over one call per message after a warm-up call (which captures a
+    compiled function's graphs): the kernels' device ms, the kernels the
+    card ran (a graph's kernel nodes included; copies and fills not
+    counted), and the host's launches: kernel launches, graph launches
+    and copies or fills; and the 5 host events with the most self time a
+    message.  Before the profile, the host ms a message of one unprofiled
+    pass, one message after another on this thread (no workers, no
+    broker).  Raises where the profiler records no device kernel: the
+    work did not run on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(msgs[0])
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for msg in msgs:
+        fn(msg)
+    torch.cuda.synchronize()
+    serial_ms = (time.perf_counter() - t0) / len(msgs) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for msg in msgs:
             fn(msg)
         torch.cuda.synchronize()
-    kernels = [ev for ev in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [ev for ev in events
                if getattr(ev, "device_type", None) == DeviceType.CUDA
                and not ev.key.startswith(("Memcpy", "Memset"))]
     if not kernels:
         raise AssertionError("the profiler recorded no CUDA kernel")
-    total_us = sum(ev.device_time_total for ev in kernels)
-    return (total_us / len(msgs) / 1e3,
-            sum(ev.count for ev in kernels) / len(msgs))
+    calls, host_us = {}, {}
+    for ev in events:
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
+            host_us[ev.key] = host_us.get(ev.key, 0.0) + \
+                ev.self_cpu_time_total
+    n = len(msgs)
+    top = sorted(host_us, key=host_us.get, reverse=True)[:5]
+    return {"serial_ms_per_msg": serial_ms,
+            "device_ms_per_msg": sum(ev.device_time_total
+                                     for ev in kernels) / n / 1e3,
+            "kernels_per_msg": sum(ev.count for ev in kernels) / n,
+            "kernel_launches_per_msg": sum(calls.get(k, 0)
+                                           for k in LAUNCH_APIS) / n,
+            "graph_launches_per_msg": calls.get("cudaGraphLaunch", 0) / n,
+            "copies_per_msg": sum(c for k, c in calls.items() if k.startswith(
+                ("cudaMemcpy", "cudaMemset"))) / n,
+            "top_host_ms_per_msg": {k: host_us[k] / n / 1e3 for k in top}}
+
+
+# each loop runs op by op and through its graphs in turns, so that the two
+# are compared within one call and neither only first or only last
+TURNS = (False, True, True, False)
+
+
+def loop_rates(runs):
+    """Each mode's msgs/s and wall s over its turns: ``runs`` maps
+    graph (a bool) to runs whose first item is a pipeline result."""
+    out = {}
+    for mode, graph in (("eager", False), ("graph", True)):
+        out[f"{mode}_msgs_per_s"] = [r[0].throughput()["msgs_per_s"]
+                                     for r in runs[graph]]
+        out[f"{mode}_wall_s"] = [r[0].wall_s for r in runs[graph]]
+    return out
+
+
+def outlier_graph_fns():
+    """The outlier models' compiled functions of module scope (the AE's
+    step and update are its own)."""
+    from repro_torch.ml import autoencoder as tae
+    from repro_torch.ml import isoforest as tif
+    from repro_torch.ml import kmeans as tkm
+    return [tkm.assign_fn, tkm.assign_update_fn, tae.scores_fn, tif.fit_fn,
+            tif.score_fn]
+
+
+def graph_calls(fns=None):
+    """Captures plus replays of ``fns`` so far (default: the module-scope
+    compiled functions), to show that a phase went through them."""
+    return sum(f.captures + f.replays for f in fns or outlier_graph_fns())
+
+
+class GraphMeter:
+    """Over a span: the captures, replays and capture ms of compiled
+    functions (those given at the start, counted from there, and those
+    given at the end, counted whole), the card's peak allocation, and the
+    allocation and reservation held at the end beyond the start's (what
+    live graphs keep: their pools, static inputs and outputs)."""
+
+    def __init__(self, torch, fns=()):
+        self.torch = torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.alloc = torch.cuda.memory_allocated()
+        self.reserved = torch.cuda.memory_reserved()
+        self.start = [(f, f.captures, f.replays, f.capture_s) for f in fns]
+
+    def read(self, more=()):
+        torch = self.torch
+        torch.cuda.synchronize()
+        spans = self.start + [(f, 0, 0, 0.0) for f in more]
+        return {"captures": sum(f.captures - c for f, c, _, _ in spans),
+                "replays": sum(f.replays - r for f, _, r, _ in spans),
+                "capture_ms": sum(f.capture_s - t
+                                  for f, _, _, t in spans) * 1e3,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "held_gb": (torch.cuda.memory_allocated()
+                            - self.alloc) / 1e9,
+                "reserved_gb": (torch.cuda.memory_reserved()
+                                - self.reserved) / 1e9}
+
+
+def kernel_nodes(fns):
+    """The kernel nodes of each function's last graph, summed: what one
+    message's replays run on the card."""
+    return sum(f.last.kernels for f in fns if f.last is not None)
+
+
+def same_bits_np(a, b, what):
+    """Two numpy trees (what a parameter service publishes) with the same
+    structure, types, shapes and bits (NaN thresholds included)."""
+    from torch.utils import _pytree as pytree
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    if sa != sb or len(la) != len(lb):
+        raise AssertionError(f"{what}: trees differ in structure")
+    for x, y in zip(la, lb):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{what}: {x.dtype} {x.shape} vs "
+                                 f"{y.dtype} {y.shape}")
+        if x.dtype.kind == "f":
+            x, y = x.view(f"i{x.itemsize}"), y.view(f"i{y.itemsize}")
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: values differ")
+
+
+def graph_vs_eager(torch, core, make, name, msgs, record=None):
+    """The same messages through a model's processor on the card, through
+    its compiled functions (``graph=True``) and op by op (``graph=False``),
+    each with its own parameter service: results, published versions and
+    states bit for bit, and what ``record`` (a method name) returned each
+    message.  Returns the number of compiled calls the graph path made."""
+    out = {}
+    for graph in (True, False):
+        ps = core.ParameterService()
+        model = make(graph)
+        seen = []
+        if record is not None:
+            inner = getattr(model, record)
+
+            def recording(*args, inner=inner, seen=seen):
+                res = inner(*args)
+                seen.append(res[1] if isinstance(res, tuple) else None)
+                return res
+
+            setattr(model, record, recording)
+        proc = model.make_processor(ps, name)
+        calls = graph_calls()
+        results = [proc(None, data=m) for m in msgs]
+        torch.cuda.synchronize()
+        out[graph] = (results, seen, ps.version(name), ps.fetch(name)[1],
+                      graph_calls() - calls)
+    (ra, sa, va, ta, calls), (rb, sb, vb, tb, eager_calls) = (out[True],
+                                                             out[False])
+    if ra != rb or sa != sb or va != vb:
+        raise AssertionError(f"{name} graph vs eager: {ra} / {sa} / {va} "
+                             f"vs {rb} / {sb} / {vb}")
+    same_bits_np(ta, tb, f"{name} graph vs eager, published state")
+    if eager_calls != 0 or calls < len(msgs):
+        raise AssertionError(f"{name}: {calls} compiled calls for "
+                             f"{len(msgs)} messages, {eager_calls} eager")
+    return calls
+
+
+def kmeans_vs_eager(torch, core, ml, device):
+    """8 seeded messages of 10,000 × 32 through the k-means processor's
+    graphs (the kernel inside) and op by op on the card: bit for bit."""
+    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=21)
+    msgs = [gen.sample() for _ in range(8)]
+    calls = graph_vs_eager(torch, core, lambda g: ml.KMeans(
+        device=device, graph=g), "kmeans", msgs)
+    emit("kmeans_vs_eager", messages=len(msgs), bitwise=True,
+         graph_calls=calls)
+
+
+def ae_vs_eager(torch, core, ml, device):
+    """8 seeded messages through the AE processor's graphs (scores, and
+    the update with its backward and AdamW) and op by op on the card:
+    results, losses and the published state bit for bit."""
+    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=21)
+    msgs = [gen.sample() for _ in range(8)]
+    calls = graph_vs_eager(torch, core, lambda g: ml.AutoEncoder(
+        device=device, graph=g), "ae", msgs, record="update")
+    emit("ae_vs_eager", messages=len(msgs), bitwise=True,
+         graph_calls=calls)
+
+
+def iforest_vs_eager(torch, core, ml, device):
+    """8 seeded messages through the forest processor's graphs (the
+    seeded fit, the score) and op by op on the card: results and the
+    published forest (NaN thresholds too) bit for bit, each message's fit
+    from the same seeded streams."""
+    gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=21)
+    msgs = [gen.sample() for _ in range(8)]
+    calls = graph_vs_eager(torch, core, lambda g: ml.IsolationForest(
+        device=device, graph=g), "iforest", msgs)
+    emit("iforest_vs_eager", messages=len(msgs), bitwise=True,
+         graph_calls=calls)
 
 
 def on_card(torch, tree, what):
@@ -1621,27 +1848,39 @@ def iforest_bound(n, f, n_trees, n_nodes, depth):
 
 def run_ae_pipeline(torch, core, ml, device):
     """The auto-encoder processor in ``run_pipeline``'s closed loop on the
-    card: 64 training messages, then 8 inference messages from the
-    published state; its device time and kernel launches per message from
-    the profiler.  The 4 cloud workers share the processor's state without
-    a lock, as in the reference, so concurrent updates are lost: in lock
-    step one update in 4 is kept (tests/test_torch_autoencoder.py,
+    card, op by op (``graph=False``) and through its compiled functions
+    (one graph for the scores, one for the update: the normalisation,
+    autograd's backward and AdamW): 64 training messages each, then 8
+    inference messages from the published state through the graphs; the
+    device time, kernels and host launches a message from the profiler.
+    The 4 cloud workers share the processor's state without a lock, as in
+    the reference, so concurrent updates are lost: in lock step one update
+    in 4 is kept (tests/test_torch_autoencoder.py,
     ``test_concurrent_workers_lose_updates_as_the_reference``), and the
     published step must reach that floor."""
-    params = core.ParameterService()
-    ae = ml.AutoEncoder(device=device)
-    check_on_card(torch, ae, "update", "the AE's trained state")
-    check_on_card(torch, ae, "outlier_scores", "the AE's scores")
-    res = cloud_loop(core, ml, ae.make_processor(params, "autoencoder"),
-                     AE_MESSAGES, "autoencoder", seed=7)
-    torch.cuda.synchronize()
-    version, tree = params.fetch("autoencoder")
-    floor = AE_MESSAGES // 4
-    if version != AE_MESSAGES or int(tree["step"]) < floor or not all(
-            np.isfinite(p[k]).all() for p in tree["params"]
-            for k in ("w", "b")):
-        raise AssertionError(f"published AE state is wrong (version "
-                             f"{version}, step {int(tree['step'])})")
+    fns = outlier_graph_fns()
+    runs = {False: [], True: []}
+    for graph in TURNS:
+        params = core.ParameterService()
+        ae = ml.AutoEncoder(device=device, graph=graph)
+        check_on_card(torch, ae, "update", "the AE's trained state")
+        check_on_card(torch, ae, "outlier_scores", "the AE's scores")
+        meter = GraphMeter(torch, fns)
+        res = cloud_loop(core, ml, ae.make_processor(params, "autoencoder"),
+                         AE_MESSAGES, "autoencoder", seed=7)
+        stats = meter.read([ae._update])
+        version, tree = params.fetch("autoencoder")
+        floor = AE_MESSAGES // 4
+        if version != AE_MESSAGES or int(tree["step"]) < floor or not all(
+                np.isfinite(p[k]).all() for p in tree["params"]
+                for k in ("w", "b")):
+            raise AssertionError(f"published AE state is wrong (version "
+                                 f"{version}, step {int(tree['step'])})")
+        if (stats["captures"] + stats["replays"] >= 2 * AE_MESSAGES) != graph:
+            raise AssertionError(f"graph={graph}: {stats}")
+        runs[graph].append((res, stats, version, tree, ae, params))
+    res, _, version, tree, ae, params = runs[True][-1]
+    stats, stats_e = runs[True][0][1], runs[False][0][1]
     res_inf = cloud_loop(core, ml,
                          ae.make_processor(params, "autoencoder",
                                            train=False),
@@ -1650,20 +1889,26 @@ def run_ae_pipeline(torch, core, ml, device):
         raise AssertionError("inference published a version")
     gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=9)
     msgs = [gen.sample() for _ in range(8)]
-    ae_prof = ml.AutoEncoder(device=device)
-    check_on_card(torch, ae_prof, "update", "the AE's trained state")
-    proc = ae_prof.make_processor(core.ParameterService(), "autoencoder")
-    dev_ms, launches = profile_messages(torch, lambda m: proc(None, data=m),
-                                        msgs)
+    prof = {}
+    for graph in (False, True):
+        ae_prof = ml.AutoEncoder(device=device, graph=graph)
+        check_on_card(torch, ae_prof, "update", "the AE's trained state")
+        proc = ae_prof.make_processor(core.ParameterService(), "autoencoder")
+        prof["graph" if graph else "eager"] = profile_messages(
+            torch, lambda m: proc(None, data=m), msgs)
+    prof["graph"]["kernel_nodes_per_msg"] = kernel_nodes(
+        [outlier_graph_fns()[2], ae_prof._update])
     sizes = [tree["params"][0]["w"].shape[0]] + [
         p["w"].shape[1] for p in tree["params"]]
     bound, bound_by, flops, act_mb = ae_bound(MAIN_SHAPE[0], sizes)
     emit("ae_pipeline", n_processed=res.n_processed, wall_s=res.wall_s,
-         msgs_per_s=res.throughput()["msgs_per_s"],
+         msgs_per_s=res.throughput()["msgs_per_s"], **loop_rates(runs),
          inference_msgs_per_s=res_inf.throughput()["msgs_per_s"],
          n_inference=res_inf.n_processed, params_version=version,
-         step=int(tree["step"]), step_floor=floor, device_ms_per_msg=dev_ms,
-         launches_per_msg=launches, bound_ms=bound, bound_by=bound_by,
+         steps={mode: [int(r[3]["step"]) for r in runs[graph]]
+                for mode, graph in (("eager", False), ("graph", True))},
+         step_floor=AE_MESSAGES // 4, graph=stats, eager=stats_e,
+         profile=prof, bound_ms=bound, bound_by=bound_by,
          gflop_per_msg=flops / 1e9, activation_mb_per_forward=act_mb)
 
 
@@ -1723,32 +1968,49 @@ def ae_vs_host(torch, core, ml, device):
 
 def run_iforest_pipeline(torch, core, ml, device):
     """The isolation-forest processor (100 trees, refit per message) in
-    the same closed loop on the card for 16 messages; device time and
-    kernel launches per message from the profiler."""
-    params = core.ParameterService()
-    forest = ml.IsolationForest(device=device)
-    check_on_card(torch, forest, "fit", "the fitted forest")
-    check_on_card(torch, forest, "outlier_scores", "the forest's scores")
-    res = cloud_loop(core, ml, forest.make_processor(params, "iforest"),
-                     IFOREST_MESSAGES, "isoforest", seed=7)
-    version, tree = params.fetch("iforest")
-    if version != IFOREST_MESSAGES or tree["forest"]["size"].shape != (
-            100, 511):
-        raise AssertionError(f"published forest is wrong ({version})")
+    the same closed loop on the card for 16 messages, op by op
+    (``graph=False``) and through its compiled fit (seeded again before
+    every replay) and score; device time, kernels and host launches a
+    message from the profiler."""
+    fns = outlier_graph_fns()
+    runs = {False: [], True: []}
+    for graph in TURNS:
+        params = core.ParameterService()
+        forest = ml.IsolationForest(device=device, graph=graph)
+        check_on_card(torch, forest, "fit", "the fitted forest")
+        check_on_card(torch, forest, "outlier_scores", "the forest's scores")
+        meter = GraphMeter(torch, fns)
+        res = cloud_loop(core, ml, forest.make_processor(params, "iforest"),
+                         IFOREST_MESSAGES, "isoforest", seed=7)
+        stats = meter.read()
+        version, tree = params.fetch("iforest")
+        if version != IFOREST_MESSAGES or tree["forest"]["size"].shape != (
+                100, 511):
+            raise AssertionError(f"published forest is wrong ({version})")
+        if (stats["captures"] + stats["replays"]
+                >= 2 * IFOREST_MESSAGES) != graph:
+            raise AssertionError(f"graph={graph}: {stats}")
+        runs[graph].append((res, stats, tree))
+    res, _, tree = runs[True][-1]
+    stats, stats_e = runs[True][0][1], runs[False][0][1]
     gen = ml.MiniAppGenerator(n_points=MAIN_SHAPE[0], seed=9)
     msgs = [gen.sample() for _ in range(4)]
-    forest_prof = ml.IsolationForest(device=device)
-    check_on_card(torch, forest_prof, "fit", "the fitted forest")
-    proc = forest_prof.make_processor()
-    dev_ms, launches = profile_messages(torch, lambda m: proc(None, data=m),
-                                        msgs)
+    prof = {}
+    for graph in (False, True):
+        forest_prof = ml.IsolationForest(device=device, graph=graph)
+        check_on_card(torch, forest_prof, "fit", "the fitted forest")
+        proc = forest_prof.make_processor()
+        prof["graph" if graph else "eager"] = profile_messages(
+            torch, lambda m: proc(None, data=m), msgs)
+    prof["graph"]["kernel_nodes_per_msg"] = kernel_nodes(fns[3:])
     n_trees, n_nodes = tree["forest"]["size"].shape
     bound, bound_by = iforest_bound(MAIN_SHAPE[0], MAIN_SHAPE[1], n_trees,
-                                    n_nodes, forest.max_depth)
+                                    n_nodes, forest_prof.max_depth)
     emit("iforest_pipeline", n_processed=res.n_processed, wall_s=res.wall_s,
-         msgs_per_s=res.throughput()["msgs_per_s"], params_version=version,
-         device_ms_per_msg=dev_ms, launches_per_msg=launches,
-         bound_ms=bound, bound_by=bound_by)
+         msgs_per_s=res.throughput()["msgs_per_s"], **loop_rates(runs),
+         params_version=IFOREST_MESSAGES,
+         graph=stats, eager=stats_e, profile=prof, bound_ms=bound,
+         bound_by=bound_by)
 
 
 def _auc(s, is_out):
@@ -1807,11 +2069,15 @@ def outlier_example(torch, kk, device):
     from repro_torch.examples import edge_to_cloud_outlier as example
     for counter in kk.LAUNCHES.values():
         counter.reset()
+    calls = graph_calls()
     t0 = time.perf_counter()
     out = example.main(device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    calls = graph_calls() - calls
+    if calls < out["n_processed"]:
+        raise AssertionError(f"outlier example: {calls} compiled calls")
     if out["n_processed"] != out["n_messages"]:
         raise AssertionError(f"example processed {out['n_processed']}/"
                              f"{out['n_messages']}")
@@ -1827,7 +2093,8 @@ def outlier_example(torch, kk, device):
          advise_wall_s=out["advise_wall_s"], advice=out["advice"],
          retries=out["retries"], swaps=out["swaps"],
          autoscale=out["autoscale"], kmeans_messages=out["kmeans_messages"],
-         params_versions=out["params_versions"], launches=launches)
+         params_versions=out["params_versions"], launches=launches,
+         graph_calls=calls)
 
 
 # --- training (internlm2-1.8b at full width; mamba2-130m for resume) ------
@@ -2694,12 +2961,16 @@ def quickstart_example(torch, core, ml, kk, device):
     from repro_torch.examples import quickstart
     for counter in kk.LAUNCHES.values():
         counter.reset()
+    calls = graph_calls()
     out = quickstart.main(device=device)
     torch.cuda.synchronize()
     launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    calls = graph_calls() - calls
     if out["n_processed"] != out["n_messages"]:
         raise AssertionError(f"quickstart processed {out['n_processed']}/"
                              f"{out['n_messages']}")
+    if calls < out["n_messages"]:
+        raise AssertionError(f"quickstart: {calls} compiled calls")
     if launches["kmeans_assign_update"] < out["n_messages"]:
         raise AssertionError(f"quickstart launched B1 "
                              f"{launches['kmeans_assign_update']} times")
@@ -2718,7 +2989,7 @@ def quickstart_example(torch, core, ml, kk, device):
     emit("quickstart_example", n_messages=out["n_messages"],
          n_processed=out["n_processed"], wall_s=out["wall_s"],
          msgs_per_s=out["msgs_per_s"], outliers=out["outliers"],
-         launches=launches, checked_vs_host=len(msgs),
+         launches=launches, graph_calls=calls, checked_vs_host=len(msgs),
          mean_score_max_abs=worst)
 
 
@@ -2730,10 +3001,14 @@ def geo_example(torch, kk, device):
     from repro_torch.examples import geo_distributed as geo
     for counter in kk.LAUNCHES.values():
         counter.reset()
+    calls = graph_calls()
     out = geo.main(device=device)
     torch.cuda.synchronize()
     launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    calls = graph_calls() - calls
     n = out["n_messages"]
+    if calls < 2 * n:
+        raise AssertionError(f"geo example: {calls} compiled calls")
     if out["local"]["n_processed"] != n or out["geo"]["n_processed"] != n:
         raise AssertionError(f"geo example processed {out['local']} / "
                              f"{out['geo']}")
@@ -2743,7 +3018,7 @@ def geo_example(torch, kk, device):
     if choices != {"k-means": "edge", "auto-encoder": "cloud"}:
         raise AssertionError(f"placement ranking {choices}")
     emit("geo_example", n_messages=n, local=out["local"], geo=out["geo"],
-         rankings=out["rankings"], launches=launches)
+         rankings=out["rankings"], launches=launches, graph_calls=calls)
 
 
 def autotune(torch, kk, device):
@@ -2805,12 +3080,14 @@ def calibrate(torch, kk, device):
     from repro_torch.tools import calibration_drift as drift
     for counter in kk.LAUNCHES.values():
         counter.reset()
+    calls = graph_calls()
     t0 = time.perf_counter()
     costs = cal.Calibrator(n_points=2_500, n_features=32,
                            device=device).calibrate(measure_service=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.count for name, c in kk.LAUNCHES.items()}
+    calls = graph_calls() - calls
     committed = cal.load_calibration()
     models = {}
     for name, mc in sorted(costs.items()):
@@ -2830,8 +3107,9 @@ def calibrate(torch, kk, device):
     if not 0.75 <= models["kmeans"]["flops_ratio"] <= 1.33:
         raise AssertionError(f"k-means count {models['kmeans']}")
     # three k-means processors, a warm-up and 5 samples each
-    if launches["kmeans_assign_update"] < 3 * 6:
-        raise AssertionError(f"calibration launched B1 {launches}")
+    if launches["kmeans_assign_update"] < 3 * 6 or calls < 5 * 6:
+        raise AssertionError(f"calibration launched B1 {launches}, "
+                             f"{calls} compiled calls")
     report = drift.drift_report(models=["kmeans"], n_messages=2,
                                 device=device)
     (row,) = report["models"]
@@ -2841,6 +3119,7 @@ def calibrate(torch, kk, device):
             or not row["achieved_fraction_of_peak"] > 0.0):
         raise AssertionError(f"calibration drift {report}")
     emit("calibrate", wall_s=wall, models=models, launches=launches,
+         graph_calls=calls,
          drift=row, drift_meta=report["meta"])
 
 
@@ -3653,12 +3932,18 @@ def main() -> int:
 
     # the paper's other two workloads, the advisor and its full scenario
     advise(core, cost)
+    kmeans_vs_eager(torch, core, ml, device)
     run_ae_pipeline(torch, core, ml, device)
     ae_vs_host(torch, core, ml, device)
+    ae_vs_eager(torch, core, ml, device)
     run_iforest_pipeline(torch, core, ml, device)
     iforest_vs_host(torch, ml, device)
+    iforest_vs_eager(torch, core, ml, device)
     outlier_example(torch, kk, device)
     calibrate(torch, kk, device)
+    # the outlier models' graphs go before the LM phases need the card
+    for fn in outlier_graph_fns():
+        fn.clear()
     lm_example(torch, fa, device)
 
     # training: internlm2-1.8b at full width, card against host, resume,

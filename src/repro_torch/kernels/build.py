@@ -134,15 +134,21 @@ class LaunchCounter:
     replays' launches: a replay runs no Python, so no wrapper counts it.
     ``symbols`` names the ``__global__`` functions one counted launch
     runs, so that the launches a captured graph holds can be counted from
-    its kernel nodes' names (:func:`count_launches`)."""
+    its kernel nodes' names (:func:`count_launches`).  Where two counters
+    share one function template, ``args`` tells them apart: a regular
+    expression that the mangled template arguments (``I...E``, right
+    after the identifier) must match.  Each thread's own launches are
+    also tallied (:meth:`mine`), so that a capture takes back exactly what
+    its thread counted while other threads launch."""
 
-    def __init__(self, symbols: Sequence[str] = ()):
+    def __init__(self, symbols: Sequence[str] = (), args: str = ""):
         self._lock = threading.Lock()
         self._n = 0
+        self._local = threading.local()
         self.symbols = tuple(symbols)
         # an Itanium-mangled name spells an identifier as <length><name>
         self._pattern = re.compile("|".join(
-            f"{len(s)}{re.escape(s)}" for s in self.symbols) or "(?!)")
+            f"{len(s)}{re.escape(s)}{args}" for s in self.symbols) or "(?!)")
         COUNTERS.append(self)
 
     def counts(self, name: str) -> bool:
@@ -153,6 +159,11 @@ class LaunchCounter:
     def incr(self) -> None:
         with self._lock:
             self._n += 1
+        self._local.n = self.mine() + 1
+
+    def mine(self) -> int:
+        """Every launch :meth:`incr` counted on the calling thread."""
+        return getattr(self._local, "n", 0)
 
     def add(self, n: int) -> None:
         """Add ``n`` launches: a graph's replay adds those its capture

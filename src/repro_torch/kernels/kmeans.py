@@ -78,8 +78,13 @@ from repro_torch.kernels.build import MAX_SMEM_BYTES, LaunchCounter
 
 PRECISIONS = ("fp32", "bf16", "int8")
 _DTYPE_CODE = {"fp32": 0, "bf16": 1, "int8": 2}
-LAUNCHES = {"kmeans_assign": LaunchCounter(),
-            "kmeans_assign_update": LaunchCounter()}
+# both forms are instances of one template, assign_kernel<rows, T, fused>:
+# the fused flag's mangled argument (Lb0E / Lb1E) tells their nodes apart;
+# the fused form's second launch, reduce_partials, is not counted
+LAUNCHES = {"kmeans_assign": LaunchCounter(("assign_kernel",),
+                                           args=r"ILi\d+E[a-z]Lb0E"),
+            "kmeans_assign_update": LaunchCounter(("assign_kernel",),
+                                                  args=r"ILi\d+E[a-z]Lb1E")}
 # rows a tile: the instances csrc/kmeans.cu holds
 TILES = (64, 128, 256)
 DEFAULT_BLOCK_N = 128

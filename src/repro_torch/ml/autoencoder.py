@@ -27,6 +27,16 @@ numpy, so a state either package published loads in the other
 ``init`` draws He-normal weights from a ``torch.Generator`` seeded by
 ``seed``, and parity with the reference starts from carried-across
 weights.
+
+The reference jits ``ae_forward``, ``ae_recon_error``, ``ae_loss`` and the
+step; their compiled counterparts are :data:`ae_forward_fn`,
+:data:`ae_recon_error_fn`, :data:`ae_loss_fn` and ``AutoEncoder._step``
+(:class:`repro_torch.graphs.GraphFn`: one CUDA graph a key on the card,
+the eager function on the CPU).  The processor's two methods are one
+compiled call each, with the normalisation inside: ``outlier_scores``
+(:data:`scores_fn`) and ``update`` (``AutoEncoder._update``: the
+``epochs_per_batch`` steps, autograd's backward and AdamW in one graph);
+``graph=False`` runs them op by op.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.graphs import GraphFn
 from repro_torch.ml.kmeans import resolve_device
 # either package's published {"params", "opt", "step"} (numpy) as tensors
 from repro_torch.ml.kmeans import tree_to_device as load_reference_state
@@ -91,6 +102,62 @@ def ae_loss(params, x):
     return torch.mean((r - x) ** 2)
 
 
+def _norm(x):
+    """Each feature to zero mean and unit population std (ddof 0), 1e-6
+    added outside it."""
+    mu = x.mean(0, keepdim=True)
+    sd = x.std(0, keepdim=True, correction=0) + 1e-6
+    return (x - mu) / sd
+
+
+def _scores(params, points):
+    """The outlier scores of a message: its normalised points'
+    reconstruction errors."""
+    return ae_recon_error(params, _norm(points))
+
+
+def _make_step(opt):
+    """The train step, ``step(params, opt_state, stepno, x) -> (params,
+    opt_state, loss after the step)``: autograd's gradients of
+    :func:`ae_loss`, then ``opt``'s update.  It holds ``opt`` alone."""
+    def step(params, opt_state, stepno, x):
+        leaves, spec = pytree.tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = ae_loss(pytree.tree_unflatten(live, spec), x)
+            grads = torch.autograd.grad(loss, live)
+        with torch.no_grad():
+            updates, new_opt = opt.update(
+                pytree.tree_unflatten(list(grads), spec), opt_state,
+                params, stepno)
+            new_params = pytree.tree_map(lambda p, u: p + u, params,
+                                         updates)
+            return new_params, new_opt, ae_loss(new_params, x)
+    return step
+
+
+def _make_update(step):
+    """``update(params, opt_state, stepno, points, *, epochs) -> (params,
+    opt_state, stepno, loss)``: ``epochs`` steps on the normalised
+    points, the step count a device tensor throughout."""
+    def update(params, opt_state, stepno, points, *, epochs: int):
+        x = _norm(points)
+        loss = None
+        for _ in range(epochs):
+            params, opt_state, loss = step(params, opt_state, stepno, x)
+            stepno = stepno + 1
+        return params, opt_state, stepno, loss
+    return update
+
+
+# the compiled counterparts of the reference's jitted functions, and the
+# processor's scoring call
+ae_forward_fn = GraphFn(ae_forward)
+ae_recon_error_fn = GraphFn(ae_recon_error)
+ae_loss_fn = GraphFn(ae_loss)
+scores_fn = GraphFn(_scores)
+
+
 @dataclass
 class AutoEncoder:
     n_features: int = 32
@@ -99,25 +166,16 @@ class AutoEncoder:
     epochs_per_batch: int = 1
     seed: int = 0
     device: Optional[torch.device] = None
+    graph: bool = True              # the compiled functions (False: eager)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self._opt = make_optimizer("adamw", lambda s: self.lr,
-                                   weight_decay=0.0)
-
-    def _step(self, params, opt_state, stepno, x):
-        leaves, spec = pytree.tree_flatten(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss = ae_loss(pytree.tree_unflatten(live, spec), x)
-            grads = torch.autograd.grad(loss, live)
-        with torch.no_grad():
-            updates, new_opt = self._opt.update(
-                pytree.tree_unflatten(list(grads), spec), opt_state,
-                params, stepno)
-            new_params = pytree.tree_map(lambda p, u: p + u, params,
-                                         updates)
-            return new_params, new_opt, ae_loss(new_params, x)
+        lr = self.lr                    # a constant of the step, as jit's
+        self._opt = make_optimizer("adamw", lambda s: lr, weight_decay=0.0)
+        step = _make_step(self._opt)
+        # the compiled step, and the processor's update around it
+        self._step = GraphFn(step)
+        self._update = GraphFn(_make_update(step))
 
     def init(self):
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -126,25 +184,28 @@ class AutoEncoder:
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=self.device)}
 
+    def _compiled(self, fn: GraphFn):
+        return fn if self.graph else fn.eager
+
     def update(self, state, points):
-        x = self._norm(points)
-        params, opt, stepno = state["params"], state["opt"], state["step"]
-        loss = None
-        for _ in range(self.epochs_per_batch):
-            params, opt, loss = self._step(params, opt, stepno, x)
-            stepno = stepno + 1
+        """``epochs_per_batch`` steps on the message, one compiled call;
+        the loss after the last step is read on the host."""
+        params, opt, stepno, loss = self._compiled(self._update)(
+            state["params"], state["opt"], state["step"],
+            self._points(points), epochs=self.epochs_per_batch)
         return {"params": params, "opt": opt, "step": stepno}, float(loss)
 
     @torch.no_grad()
     def outlier_scores(self, state, points) -> torch.Tensor:
-        return ae_recon_error(state["params"], self._norm(points))
+        return self._compiled(scores_fn)(state["params"],
+                                         self._points(points))
+
+    def _points(self, points) -> torch.Tensor:
+        return torch.as_tensor(points, dtype=torch.float32,
+                               device=self.device)
 
     def _norm(self, points) -> torch.Tensor:
-        # the population std (ddof 0), 1e-6 added outside it
-        x = torch.as_tensor(points, dtype=torch.float32, device=self.device)
-        mu = x.mean(0, keepdim=True)
-        sd = x.std(0, keepdim=True, correction=0) + 1e-6
-        return (x - mu) / sd
+        return _norm(self._points(points))
 
     def make_processor(self, param_service=None, model_name: str = "ae",
                        train: bool = True):

@@ -24,6 +24,15 @@ forest's device (the reference's ``jax.random`` streams cannot be
 matched), so parity with the reference is exact on a forest it built
 (:func:`load_reference_state`) and statistical on this module's own fit.
 
+The reference jits ``_fit`` and ``_score``; their compiled counterparts
+are :data:`fit_fn` and :data:`score_fn` (:class:`repro_torch.graphs.GraphFn`:
+one CUDA graph a key on the card, the eager functions on the CPU), which
+:class:`IsolationForest` calls, or (``graph=False``) the eager functions.
+``fit`` seeds a new generator on every call, so every message's forest
+draws the same streams: :data:`fit_fn` is seeded, and on the card its
+generator is seeded again before each replay, so that every replay builds
+the eager fit's forest bit for bit.
+
 Anomaly score (Liu et al. 2008): s(x) = 2^(−E[h(x)]/c(ψ)), where h(x) is
 path length + c(leaf_size) continuation, c(n) = 2H(n−1) − 2(n−1)/n.
 """
@@ -35,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.graphs import GraphFn
 from repro_torch.ml.kmeans import resolve_device
 # either package's published {"forest", "psi"} (numpy) as tensors
 from repro_torch.ml.kmeans import tree_to_device as load_reference_state
@@ -163,12 +173,20 @@ def _fit(gen: torch.Generator, pts, n_trees: int, psi: int,
     return _build_forest(gen, pts[idx], max_depth)
 
 
+# the compiled counterparts of the reference's jitted functions:
+# fit_fn(pts, seed=, n_trees=, psi=, max_depth=) and
+# score_fn(forest, x, psi, max_depth=)
+fit_fn = GraphFn(_fit, seeded=True)
+score_fn = GraphFn(_score)
+
+
 @dataclass
 class IsolationForest:
     n_trees: int = 100
     psi: int = 256                 # subsample size (sklearn default)
     seed: int = 0
     device: Optional[torch.device] = None
+    graph: bool = True             # the compiled functions (False: eager)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -181,20 +199,25 @@ class IsolationForest:
         return torch.as_tensor(points, dtype=torch.float32,
                                device=self.device)
 
+    def _compiled(self, fn: GraphFn):
+        return fn if self.graph else fn.eager
+
     @torch.no_grad()
     def fit(self, points):
         pts = self._points(points)
         psi = min(self.psi, pts.shape[0])
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        forest = _fit(gen, pts, self.n_trees, psi, self.max_depth)
+        forest = self._compiled(fit_fn)(pts, seed=self.seed,
+                                        n_trees=self.n_trees, psi=psi,
+                                        max_depth=self.max_depth)
         return {"forest": forest,
                 "psi": torch.tensor(psi, dtype=torch.float32,
                                     device=self.device)}
 
     @torch.no_grad()
     def outlier_scores(self, state, points) -> torch.Tensor:
-        return _score(state["forest"], self._points(points), state["psi"],
-                      self.max_depth)
+        return self._compiled(score_fn)(state["forest"],
+                                        self._points(points), state["psi"],
+                                        max_depth=self.max_depth)
 
     def make_processor(self, param_service=None, model_name: str = "iforest",
                        train: bool = True):

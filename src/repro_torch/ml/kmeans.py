@@ -29,6 +29,16 @@ paths simulate the reduced-precision kernel exactly: bf16 rounds points
 and centroids to bfloat16, int8 fake-quantizes both with the shared
 per-feature scales of :mod:`repro_torch.kernels.quant`.
 
+The reference jits ``_assign`` and ``_assign_update``; their compiled
+counterparts here are :data:`assign_fn` and :data:`assign_update_fn`
+(:class:`repro_torch.graphs.GraphFn`): on the card one CUDA graph a key
+(the shapes, ``impl`` and ``precision``), with the kernel inside it for
+``impl="kernel"``; on the CPU the eager functions.  :class:`KMeans` calls
+them, or (``graph=False``) the eager functions on any device.  The plain
+paths count memberships with an ``index_add_`` and one-hot with a
+comparison (not ``bincount`` and ``one_hot``, whose CUDA forms read the
+ids on the host), so that every form can be captured.
+
 Every entry point computes on ``device``, which defaults to the CUDA card:
 ``KMeans()`` raises on a host without one, and never carries on on the
 CPU unless the caller passes ``device="cpu"``.
@@ -47,6 +57,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.graphs import GraphFn
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant
 
@@ -140,12 +151,16 @@ def _assign_update(centroids, counts, points, impl: str = "kernel",
         cv, pv = _precision_view(centroids, points, precision)
         ids, dmin = _expansion_assign(cv, pv)
         if impl == "twopass":
-            onehot = torch.nn.functional.one_hot(ids, k).float()   # (N,K)
+            onehot = (ids[:, None] == torch.arange(
+                k, device=ids.device)).float()                     # (N,K)
             batch_counts = onehot.sum(dim=0)                        # (K,)
             sums = onehot.T @ pv                                    # (K,F)
         else:
             sums = torch.zeros_like(cv).index_add_(0, ids, pv)
-            batch_counts = torch.bincount(ids, minlength=k).float()
+            # exact integer counts, as bincount's
+            batch_counts = torch.zeros(
+                k, dtype=torch.int64, device=ids.device).index_add_(
+                0, ids, torch.ones_like(ids)).float()
     new_counts = counts + batch_counts
     lr = torch.where(batch_counts > 0,
                      batch_counts / torch.clamp_min(new_counts, 1.0),
@@ -153,6 +168,13 @@ def _assign_update(centroids, counts, points, impl: str = "kernel",
     means = sums / torch.clamp_min(batch_counts, 1.0)[:, None]
     new_centroids = centroids * (1.0 - lr) + means * lr
     return new_centroids, new_counts, ids, dmin
+
+
+# the compiled counterparts of the reference's jitted functions:
+# assign_fn(centroids, points, impl=, precision=) and
+# assign_update_fn(centroids, counts, points, impl=, precision=)
+assign_fn = GraphFn(_assign)
+assign_update_fn = GraphFn(_assign_update)
 
 
 @dataclass
@@ -163,6 +185,7 @@ class KMeans:
     impl: str = "kernel"            # kernel | fused | twopass
     precision: str = "fp32"         # fp32 | bf16 | int8
     device: Optional[torch.device] = None
+    graph: bool = True              # the compiled functions (False: eager)
 
     def __post_init__(self):
         _check_impl(self.impl)
@@ -190,20 +213,22 @@ class KMeans:
                 "counts": torch.zeros(self.n_clusters, dtype=torch.float32,
                                       device=self.device)}
 
+    def _compiled(self, fn: GraphFn):
+        return fn if self.graph else fn.eager
+
     def assign(self, state, points) -> Tuple[torch.Tensor, torch.Tensor]:
-        return _assign(state["centroids"], self._points(points),
-                       impl=self.impl, precision=self.precision)
+        return self._compiled(assign_fn)(
+            state["centroids"], self._points(points), impl=self.impl,
+            precision=self.precision)
 
     def update(self, state, points):
-        cent, counts, _, _ = _assign_update(
-            state["centroids"], state["counts"], self._points(points),
-            impl=self.impl, precision=self.precision)
-        return {"centroids": cent, "counts": counts}
+        new_state, _, _ = self.assign_update(state, points)
+        return new_state
 
     def assign_update(self, state, points):
         """One fused pass: (new_state, ids, dmin) — the streaming hot
         path ``make_processor`` runs per message."""
-        cent, counts, ids, dmin = _assign_update(
+        cent, counts, ids, dmin = self._compiled(assign_update_fn)(
             state["centroids"], state["counts"], self._points(points),
             impl=self.impl, precision=self.precision)
         return {"centroids": cent, "counts": counts}, ids, dmin

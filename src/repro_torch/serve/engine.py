@@ -39,7 +39,6 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -47,9 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.graphs import (_capture_stream, _captured, _spec, _warmed,
-                                graph_kernel_names, graph_nodes)
-from repro_torch.kernels import build
+from repro_torch.graphs import (_capture_stream, _captured, _counted_capture,
+                                _GraphCache, _spec, _warmed, graph_nodes)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -171,7 +169,7 @@ class PrefillGraph:
     The capture takes back what the wrappers counted (``counted``: it
     launched nothing), and ``launches`` holds, for each counter with
     ``symbols``, the graph's kernel nodes that run its kernels, read from
-    the graph (:func:`graph_kernel_names`); every replay adds them.  The
+    the graph (``graphs._counted_capture``); every replay adds them.  The
     two must agree.  A prefill that syncs with the host or does anything
     else a graph cannot hold raises here: nothing falls back to the eager
     prefill on the card."""
@@ -187,26 +185,13 @@ class PrefillGraph:
         logits, cache = _warmed(
             stream, lambda: self._run(self.params, self.inputs))
         torch.cuda.empty_cache()
-        counters = build.COUNTERS
-        before = [c.count for c in counters]
-        try:
-            self.graph, (self.logits, self.cache), self.capture_s = \
-                _captured(stream, lambda: self._run(self.params, self.inputs),
-                          pool)
-        finally:
-            counted = [c.count - n for c, n in zip(counters, before)]
-            for c, n in zip(counters, counted):
-                c.add(-n)
-        self.counted = [(c, n) for c, n in zip(counters, counted) if n]
-        self.nodes, names = graph_kernel_names(self.graph)
-        self.kernels = len(names)
-        self.launches = [(c, n) for c, n in
-                         build.count_launches(names).items() if n]
-        if dict(self.counted) != dict(self.launches):
-            raise RuntimeError(
-                f"the prefill graph's kernel nodes run "
-                f"{ {c.symbols: n for c, n in self.launches} } where the "
-                f"wrappers counted { {c.symbols: n for c, n in self.counted} }")
+        cap = _counted_capture(
+            stream, lambda: self._run(self.params, self.inputs), pool,
+            what="prefill graph")
+        self.graph, (self.logits, self.cache) = cap.graph, cap.out
+        self.capture_s, self.nodes, self.kernels = (cap.seconds, cap.nodes,
+                                                    cap.kernels)
+        self.launches, self.counted = cap.launches, cap.counted
         return logits, cache
 
     def replay(self, inputs):
@@ -242,32 +227,12 @@ MAX_PREFILL_GRAPHS = 4
 MAX_DECODE_GRAPHS = 4
 
 
-class _GraphCache:
-    """The graphs a graph function keeps (``graphs``, the least recently
-    used first, at most ``limit``) and the graph of its last call
-    (``last``, None on the host).  A graph holds the params tree it was
-    captured with (its ``params``), and the function keeps the graphs of
-    one tree only: the reference's jitted functions take the params as an
-    argument and hold none, so a caller who drops a tree expects its
-    memory back."""
-
-    limit: int
-
-    def __init__(self):
-        self.graphs: "OrderedDict[tuple, Any]" = OrderedDict()
-        self.last = None
-
-    def _graph(self, key):
-        g = self.graphs.get(key)
-        if g is not None:
-            self.graphs.move_to_end(key)
-        return g
-
-    def _make_room(self) -> None:
-        """Drop the least recently used graphs until one more fits; their
-        outputs go back to the pool, for the next capture."""
-        while len(self.graphs) >= self.limit:
-            self.graphs.popitem(last=False)
+class _ParamsGraphCache(_GraphCache):
+    """A :class:`~repro_torch.graphs._GraphCache` whose graphs each hold
+    the params tree they were captured with (their ``params``): the
+    function keeps the graphs of one tree only.  The reference's jitted
+    functions take the params as an argument and hold none, so a caller
+    who drops a tree expects its memory back."""
 
     def _keep_params(self, params) -> None:
         """Drop the graphs of every params tree but ``params``, so that a
@@ -279,7 +244,7 @@ class _GraphCache:
             self.last = None
 
 
-class PrefillFn(_GraphCache):
+class PrefillFn(_ParamsGraphCache):
     """:func:`make_prefill_fn`'s result, ``prefill(params, inputs) ->
     (logits, cache)``.  ``eager(params, inputs)`` is the prefill run op by
     op at this function's settings; ``graphs`` maps each key to its
@@ -410,7 +375,7 @@ class DecodeGraph:
         return self.logits, self.cache
 
 
-class DecodeFn(_GraphCache):
+class DecodeFn(_ParamsGraphCache):
     """:func:`make_decode_fn`'s result, ``decode(params, cache, inputs) ->
     (logits, cache)``.  ``graphs`` maps each key to its
     :class:`DecodeGraph`, the least recently used first; ``last`` is the

@@ -1410,3 +1410,262 @@ def test_cuda_train_graph_resume_equals_a_straight_run(sm90_device,
                     pytree.tree_leaves(straight[:2])):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the outlier models' compiled functions (ml.kmeans, ml.autoencoder,
+# ml.isoforest): one CUDA graph a key, functional, thread-safe, the forest's
+# generator seeded again before every replay
+# ---------------------------------------------------------------------------
+
+
+def _same_bits(a, b):
+    """Two trees of tensors with the same structure, types, shapes and
+    bits (a NaN equals a NaN of the same bits)."""
+    from torch.utils import _pytree as pytree
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    assert sa == sb
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        if x.is_floating_point():
+            bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+            x, y = x.view(bits), y.view(bits)
+        assert torch.equal(x, y)
+
+
+def _outlier_cases():
+    """Each compiled function of the outlier models: (name, the raw
+    function, seeded, and ``inputs(n, seed, device) -> (args, static)``
+    giving a key per n)."""
+    from repro_torch.ml import autoencoder as tae
+    from repro_torch.ml import kmeans as tkm
+
+    def points(n, seed, device):
+        rng = np.random.default_rng(seed)
+        return torch.as_tensor((rng.standard_normal((n, 32)) * 3)
+                               .astype(np.float32), device=device)
+
+    def ae_state(device):
+        return AutoEncoder(device=device, seed=2).init()
+
+    def km(impl, precision, fused):
+        def inputs(n, seed, device):
+            x = points(n, seed, device)
+            cent, counts = x[:25].clone(), torch.arange(
+                25, dtype=torch.float32, device=device)
+            args = (cent, counts, x) if fused else (cent, x)
+            return args, dict(impl=impl, precision=precision)
+        return inputs
+
+    def ae(name):
+        def inputs(n, seed, device):
+            st = ae_state(device)
+            x = points(n, seed, device)
+            if name == "step":
+                return (st["params"], st["opt"], st["step"] + seed, x), {}
+            return (st["params"], x), {}
+        return inputs
+
+    def fit(n, seed, device):
+        return (points(n, seed, device),), dict(seed=0, n_trees=100, psi=256,
+                                                max_depth=8)
+
+    def score(n, seed, device):
+        st = IsolationForest(device="cpu").fit(
+            points(2_000, 99, "cpu").numpy())
+        forest = {k: v.to(device) for k, v in st["forest"].items()}
+        return (forest, points(n, seed, device),
+                st["psi"].to(device)), dict(max_depth=8)
+
+    step = tae._make_step(AutoEncoder(device="cpu")._opt)
+    cases = [(f"assign_{i}_{p}", tkm._assign, False, km(i, p, False))
+             for i in ("kernel", "fused", "twopass") for p in PRECISIONS]
+    cases += [(f"assign_update_{i}_{p}", tkm._assign_update, False,
+               km(i, p, True))
+              for i in ("kernel", "fused", "twopass") for p in PRECISIONS]
+    cases += [("ae_forward", tae.ae_forward, False, ae("forward")),
+              ("ae_recon_error", tae.ae_recon_error, False, ae("recon")),
+              ("ae_loss", tae.ae_loss, False, ae("loss")),
+              ("ae_step", step, False, ae("step")),
+              ("ae_scores", tae._scores, False, ae("scores")),
+              ("iforest_fit", tif._fit, True, fit),
+              ("iforest_score", tif._score, False, score)]
+    return cases
+
+
+OUTLIER_CASES = _outlier_cases()
+
+
+@pytest.mark.parametrize("case", OUTLIER_CASES, ids=[c[0] for c in
+                                                     OUTLIER_CASES])
+def test_cuda_outlier_graph_is_the_eager_function(sm90_device, case):
+    """Each compiled function on the card against its eager function on
+    the same inputs: three calls of one key (the warm-up, then two
+    replays), each with other values, and a call of a second key; every
+    output bit for bit, every result a new tensor.  The fused plain form's
+    sums add with float atomics, whose order varies from run to run: its
+    centroids are held within 1e-5 of their scale, the rest bit for bit."""
+    from repro_torch.graphs import GraphFn
+    name, raw, seeded, inputs = case
+    fn = GraphFn(raw, seeded=seeded)
+    results = []
+    for n, seed in ((2_000, 1), (2_000, 2), (2_000, 3), (700, 4)):
+        args, static = inputs(n, seed, sm90_device)
+        got = fn(*args, **static)
+        want = fn.eager(*args, **static)
+        if name.startswith("assign_update_fused"):
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                       atol=1e-5)
+            _same_bits(got[1:], want[1:])
+        else:
+            _same_bits(got, want)
+        results.append(got)
+    assert fn.captures == 2 and len(fn.graphs) == 2
+    g = fn.last
+    assert g.capture_s > 0 and g.nodes >= g.kernels > 0
+    from torch.utils import _pytree as pytree
+    first, second = (pytree.tree_leaves(r) for r in results[1:3])
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(first, second))
+
+
+def test_cuda_outlier_graph_forest_replays_the_eager_fit(sm90_device):
+    """The forest's fit through its graph: the warm-up and two replays on
+    one message, then a replay on another message of the same shape, each
+    the eager fit's forest (a new generator seeded with the same seed) bit
+    for bit, NaN thresholds included: the graph's generator is seeded
+    again before every replay, so no replay draws past the first."""
+    from repro_torch.graphs import GraphFn
+    fn = GraphFn(tif._fit, seeded=True)
+    gen = MiniAppGenerator(n_points=5_000, seed=3)
+    a, b = (torch.as_tensor(gen.sample(), dtype=torch.float32,
+                            device=sm90_device) for _ in range(2))
+    static = dict(seed=0, n_trees=100, psi=256, max_depth=8)
+    for x in (a, a, a, b):
+        _same_bits(fn(x, **static), fn.eager(x, **static))
+    assert fn.captures == 1
+    proc = IsolationForest(device=sm90_device)
+    eager = IsolationForest(device=sm90_device, graph=False)
+    for msg in (a, b, a):
+        _same_bits(proc.fit(msg.cpu().numpy()), eager.fit(msg.cpu().numpy()))
+
+
+def test_cuda_outlier_graph_concurrent_replays(sm90_device):
+    """Four threads call one compiled function at once, each on its own
+    inputs: first all on a key none has captured (one capture; the three
+    others replay it), then 10 calls each on that key; every result is
+    what its inputs give serially, eagerly, bit for bit."""
+    import threading
+    from repro_torch.graphs import GraphFn
+    from repro_torch.ml import autoencoder as tae
+    ae = AutoEncoder(device=sm90_device)
+    fn = GraphFn(tae._make_update(tae._make_step(ae._opt)))
+    st = ae.init()
+    rng = np.random.default_rng(5)
+    msgs = [[torch.as_tensor(rng.standard_normal((1_000, 32)).astype(
+        np.float32), device=sm90_device) for _ in range(11)]
+        for _ in range(4)]
+    got = [[] for _ in range(4)]
+    barrier = threading.Barrier(4, timeout=60)
+    errors = []
+
+    def worker(w):
+        try:
+            for i, x in enumerate(msgs[w]):
+                if i < 2:
+                    barrier.wait()
+                got[w].append(fn(st["params"], st["opt"], st["step"], x,
+                                 epochs=1))
+        except BaseException as err:            # noqa: BLE001
+            errors.append(err)
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert fn.captures == 1 and len(fn.graphs) == 1
+    for w in range(4):
+        for x, out in zip(msgs[w], got[w]):
+            _same_bits(out, fn.eager(st["params"], st["opt"], st["step"], x,
+                                     epochs=1))
+
+
+def test_cuda_outlier_graph_workers_lose_updates_as_the_reference(
+        sm90_device):
+    """tests/test_torch_autoencoder.py's lock-step test on the card,
+    through the compiled update: four workers that share one processor's
+    state without a lock keep one step a round."""
+    import threading
+    ae = AutoEncoder(device=sm90_device)
+    ps = ParameterService()
+    ps.publish("ae", ae.init())
+    barrier = threading.Barrier(4, timeout=60)
+    update = ae.update
+
+    def lock_step(state, points):
+        barrier.wait()
+        return update(state, points)
+
+    ae.update = lock_step
+    proc = ae.make_processor(ps, "ae")
+    gen = MiniAppGenerator(n_points=500, seed=40)
+    pts = [gen.sample() for _ in range(12)]
+
+    def worker(w):
+        for r in range(3):
+            proc(None, data=pts[r * 4 + w])
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    version, tree = ps.fetch("ae")
+    assert version == 13 and int(tree["step"]) == 3
+    assert ae._update.captures == 1
+
+
+def test_cuda_outlier_graph_capture_that_syncs_raises(sm90_device):
+    """A function that reads a value on the host runs in the eager
+    warm-up but cannot be captured: the call raises, no graph is kept, no
+    result comes back from an eager fallback, and the card goes on
+    working."""
+    from repro_torch.graphs import GraphFn
+
+    def syncing(x):
+        return x * float(x.sum())
+
+    fn = GraphFn(syncing)
+    with pytest.raises(RuntimeError):
+        fn(torch.ones(8, device=sm90_device))
+    assert fn.graphs == {} and fn.last is None and fn.captures == 0
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    x = torch.ones(4, device=sm90_device)
+    assert float((x + 1).sum()) == 8.0
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_cuda_outlier_graph_counts_kmeans_launches(sm90_device, fused):
+    """The k-means kernel inside a graph: its warm-up launches it once
+    (counted by the wrapper), the capture counts none, and each of three
+    replays adds one launch to its own form's counter, read from the
+    graph's kernel nodes by their mangled template arguments; the other
+    form's counter stays at 0."""
+    from repro_torch.graphs import GraphFn
+    from repro_torch.ml import kmeans as tkm
+    fn = GraphFn(tkm._assign_update if fused else tkm._assign)
+    mine = tk.LAUNCHES["kmeans_assign_update" if fused else "kmeans_assign"]
+    other = tk.LAUNCHES["kmeans_assign" if fused else "kmeans_assign_update"]
+    for c in tk.LAUNCHES.values():
+        c.reset()
+    for seed in range(4):
+        x, c = _blob((10_000, 32, 25), sm90_device, seed)
+        args = (c, torch.zeros(25, device=sm90_device), x) if fused \
+            else (c, x)
+        fn(*args, impl="kernel", precision="fp32")
+    torch.cuda.synchronize()
+    assert mine.count == 4 and other.count == 0
+    assert dict(fn.last.launches) == {mine: 1} == dict(fn.last.counted)
