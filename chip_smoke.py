@@ -43,14 +43,20 @@ bit for bit: step time, data time, peak memory, launches or kernel
 nodes, capture time and device time a step against the fp32 bound; the
 same step through the graph on the card and eagerly on the host (2
 layers); a checkpointed resume of mamba2-130m through the graph against
-a straight run; and the int8-compressed step (eager) on a one-rank NCCL
-group.  Training launches no hand-written kernel: the reference trains
-with ``impl="dense"`` and its Pallas kernels have no gradient.
+a straight run; and the int8-compressed step on a one-rank NCCL group,
+a reduced check and then internlm2-1.8b at full width, 4 × 1,024
+tokens, eagerly and through ``make_compressed_train_fn``'s CUDA graph
+(the NCCL collectives inside it), bit for bit, the error buffers too.
+Training launches no hand-written kernel: the reference trains with
+``impl="dense"`` and its Pallas kernels have no gradient.
 
 Then the launch stack: the GPipe step (``train.pipeline``) with both of
 its 2 stages (12 layers each) in one process, internlm2-1.8b at full
-width and depth, 4 microbatches of 1 × 1,024 tokens, two steps against
-two plain steps from the same seed on the same batches; and the sharding
+width and depth, 4 microbatches of 1 × 1,024 tokens, eagerly (its first
+two steps against two plain steps from the same seed on the same
+batches) and through ``make_pp_train_fn``'s CUDA graph, bit for bit with
+the eager run, each with step and device time, idle share, launches or
+kernel nodes and peak memory; and the sharding
 rules on a one-rank NCCL mesh (1, 1): internlm2-1.8b's parameters
 restored onto their ``param_pspecs`` placements, its forward under the
 mesh's rules against ``rules=None``, qwen3-moe (1 layer, full width) with
@@ -64,7 +70,9 @@ on the host (meta DTensors over fake process groups, counted by
 ``roofline.counter``), and internlm2-1.8b's dry-run train step (bf16,
 4 × 4,096 tokens) and a decode step over a 32,768-slot bf16 cache counted
 on the card and on meta tensors, their device time against the counted
-bound.  No hand-written kernel runs there (dense attention).
+bound, each timed eagerly and through its CUDA graph (``make_train_fn``,
+``make_decode_fn``).  No hand-written kernel runs there (dense
+attention).
 
 Then the rest of the zoo, each phase with the flash launch count set to 0
 just before it and read just after: minicpm3-4b (MLA) at full width and
@@ -301,7 +309,8 @@ PLAN_LIMIT_BYTES = 75e9       # a reckoned peak past this fails on the host
 # the GPipe step (both stages in one process) and the sharding rules
 GPIPE_STAGES = 2
 GPIPE_MICROBATCHES = 4
-GPIPE_STEPS = 2
+GPIPE_STEPS = 2               # held against the plain step
+GPIPE_GRAPH_STEPS = 4         # eager, then through the graph, bit for bit
 GPIPE_LOSS_TOL = 1e-5         # relative, against the plain step
 GPIPE_NORM_TOL = 1e-4         # relative (train_vs_host's)
 GPIPE_PARAM_TOL = 5e-5        # absolute (tests/test_torch_train.py's)
@@ -325,6 +334,10 @@ DRYRUN_SMALL = [("train_s", 32, 4, "train"), ("prefill_s", 64, 2, "prefill"),
                 ("decode_s", 64, 4, "decode")]
 DRYRUN_TRAIN_BATCH = 4        # train_4k's 256 sequences of 4,096 cut to 4
 DRYRUN_DECODE_BATCH = 2       # decode_32k's 128 sequences cut to 2
+DRYRUN_TIMED = 1              # host-timed calls a form of the train step
+DRYRUN_DECODES = 8            # and of the decode step
+INT8_BATCH = 4                # the train phase's 4 × 1,024 tokens
+INT8_STEPS = 4                # eager, then through the graph, bit for bit
 
 
 def emit(phase: str, **fields) -> None:
@@ -2411,12 +2424,111 @@ def train_resume(torch, TL, TS, device):
          params_max_abs=worst, tol=1e-6, checkpoint_bytes=ckpt_bytes)
 
 
+def step_run(torch, make_fn, init, batches, device, graph, keep=(),
+             snap=lambda params, state: params, profile=True):
+    """``len(batches)`` steps of the train function ``make_fn()`` from
+    ``init()``: through its CUDA graph where ``graph``, else its eager
+    step (each step's trees fed to the next), each timed on the host to a
+    synchronize; then, where ``profile``, one more step under
+    ``profile_step`` (the eager step, or a replay, which moves the
+    graph's buffers on).  Returns (the run's row: metrics, step ms each
+    and their median after the first, tokens a second, peak GB allocated
+    and reserved, device ms, launches and idle share of the profiled step,
+    the host's ms to queue one more and, through the graph, its capture
+    ms, nodes and kernel nodes;
+    ``snap(params, state)``'s leaves on the host after each step in
+    ``keep``).  The function, its graphs and its trees are freed before
+    it returns."""
+    from torch.utils import _pytree as pytree
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state = init()
+    fn = make_fn()
+    step = fn if graph else fn.eager
+    metrics, ms, kept = [], [], {}
+    for i, b in enumerate(batches, 1):
+        b = {k: v.to(device) for k, v in b.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i in keep:
+            kept[i] = [x.to("cpu", copy=True) for x in
+                       pytree.tree_leaves(snap(params, state))]
+    on_card(torch, (params, state), "the train state")
+    if not all(np.isfinite([v for m in metrics for v in m.values()])):
+        raise AssertionError(f"non-finite metrics: {metrics}")
+    step_ms = statistics.median(ms[1:] or ms)
+    row = {"metrics": metrics, "step_ms_each": ms, "step_ms": step_ms,
+           "tokens_per_s": b["labels"].numel() / step_ms * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    if graph:
+        if fn.captures != 1 or fn.last is None:
+            raise AssertionError(f"{fn.captures} train graphs captured")
+        row.update(capture_ms=1e3 * fn.capture_s, nodes=fn.last.nodes,
+                   kernel_nodes=fn.last.kernels)
+    if profile:
+        dev_ms, launches, out = profile_step(
+            torch, lambda: step(params, state, b))
+        del out
+        row.update(device_ms_per_step=dev_ms, launches_per_step=launches,
+                   device_idle_share=1 - dev_ms / step_ms,
+                   host_enqueue_ms=_enqueue_ms(
+                       torch, lambda: step(params, state, b)))
+    del params, state, step, fn
+    torch.cuda.empty_cache()
+    return row, kept
+
+
+def graph_equals_eager(torch, eager, graph, kept_eager, kept_graph, what):
+    """Raise unless the graph run's metrics at every step and its kept
+    leaves (on the host) equal the eager run's bit for bit."""
+    if graph["metrics"] != eager["metrics"]:
+        raise AssertionError(f"{what}: graph metrics {graph['metrics']} != "
+                             f"eager {eager['metrics']}")
+    differ = sum(not torch.equal(a, b)
+                 for a, b in zip(kept_eager, kept_graph))
+    if differ or len(kept_eager) != len(kept_graph):
+        raise AssertionError(f"{what}: {differ} of {len(kept_eager)} "
+                             f"leaves of the graph differ from the eager "
+                             f"run's")
+
+
+def nccl_trace(torch):
+    """The NCCL flight recorder's entries counted by collective and state
+    (``torch._C._distributed_c10d._dump_nccl_trace``), or the error the
+    dump raised: an entry the watchdog has seen complete reads
+    "completed"."""
+    import pickle
+    from collections import Counter
+    try:
+        dump = torch._C._distributed_c10d._dump_nccl_trace(
+            includeCollectives=True, includeStackTraces=False,
+            onlyActive=False)
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return {"error": f"{type(e).__name__}: {e}"}
+    entries = pickle.loads(dump).get("entries", [])
+    return {"entries": len(entries), "by_state": dict(Counter(
+        f"{e.get('profiling_name')} {e.get('state')}" for e in entries))}
+
+
 def int8_pod(torch, TS, device):
-    """``make_compressed_train_step`` on a one-rank NCCL group, 2 steps of
-    reduced internlm2-1.8b: the error buffers stay bf16, finite and on the
-    card, and step 1's compressed gradient is within scale/2 of the plain
-    one (the residual bound of int8 rounding)."""
-    import socket
+    """The int8-compressed step on a one-rank NCCL group.  Reduced
+    internlm2-1.8b, 2 steps of ``make_compressed_train_step``: the error
+    buffers stay bf16, finite and on the card, and step 1's compressed
+    gradient is within scale/2 of the plain one (the residual bound of
+    int8 rounding).  Then internlm2-1.8b at full width and depth (fp32,
+    AdamW, remat, dense attention), ``INT8_STEPS`` steps of
+    ``INT8_BATCH`` × 1,024 tokens from one seed, eagerly and then, after
+    freeing that run, through ``make_compressed_train_fn``'s CUDA graph
+    (its MAX and mean all-reduces captured), bit for bit: losses and
+    grad norms at every step, params and bf16 error buffers after the
+    last; the flight recorder's entries after each run say which
+    collectives the group's watchdog saw complete."""
     import torch.distributed as dist
     from torch.utils import _pytree as pytree
     from repro_torch.configs import get_arch
@@ -2426,11 +2538,7 @@ def int8_pod(torch, TS, device):
     cfg = get_arch(TRAIN_ARCH).reduced()
     tc = TS.TrainConfig(lr=1e-3, warmup=2, total_steps=8,
                         grad_compression="int8_pod")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    _nccl_world(torch)
     try:
         group = dist.group.WORLD
         params, state = TS.init_train_state(cfg, tc, seed=0, device=device)
@@ -2459,11 +2567,49 @@ def int8_pod(torch, TS, device):
             raise AssertionError("error buffers are not finite bf16")
         if int(state["step"]) != 2:
             raise AssertionError("steps were not counted")
+        ef_max = max(float(t.float().abs().max()) for t in ef)
+        del params, state, step, plain, stacked, deq, ef
+
+        full = get_arch(TRAIN_ARCH)
+        ftc = TS.TrainConfig(lr=3e-4, warmup=10, total_steps=TRAIN_STEPS,
+                             grad_compression="int8_pod")
+        it = make_batch_iterator(full, INT8_BATCH, TRAIN_SEQ, seed=0,
+                                 device="cpu")
+        fbatches = [next(it) for _ in range(INT8_STEPS)]
+        kw = dict(batches=fbatches, device=device, keep=(INT8_STEPS,),
+                  snap=lambda p, s: (p, s["ef"]),
+                  make_fn=lambda: TS.make_compressed_train_fn(full, ftc,
+                                                              group),
+                  init=lambda: TS.init_train_state(full, ftc, seed=0,
+                                                   device=device))
+        rows, kept, trace = {}, {}, {}
+        for name in ("eager", "graph"):
+            rows[name], kept[name] = step_run(torch, graph=name == "graph",
+                                              **kw)
+            trace[name] = nccl_trace(torch)
+        graph_equals_eager(torch, rows["eager"], rows["graph"],
+                           kept["eager"][INT8_STEPS],
+                           kept["graph"][INT8_STEPS], "the int8 step")
+        leaves = kept["eager"][INT8_STEPS]
+        n = len(leaves) // 2            # the params, then their buffers
+        n_params = sum(t.numel() for t in leaves[:n])
+        if not all(t.dtype == torch.bfloat16 and bool(torch.isfinite(t).all())
+                   for t in leaves[n:]):
+            raise AssertionError("full-width error buffers are not finite "
+                                 "bf16")
+        del kept, leaves
     finally:
         dist.destroy_process_group()
     emit("int8_pod", arch=cfg.name, backend="nccl", world_size=1, steps=2,
-         metrics=metrics, worst_err_over_half_scale=worst,
-         ef_max_abs=max(float(t.float().abs().max()) for t in ef))
+         metrics=metrics, worst_err_over_half_scale=worst, ef_max_abs=ef_max,
+         full={"arch": full.name, "layers": full.n_layers,
+               "d_model": full.d_model, "params": n_params,
+               "batch": INT8_BATCH, "seq": TRAIN_SEQ, "steps": INT8_STEPS,
+               "dtype": "fp32", "remat": True, "impl": "dense",
+               "graph_equals_eager": "losses and grad norms at every step, "
+               "params and bf16 error buffers after the last, bit for bit",
+               "eager": rows["eager"], "graph": rows["graph"],
+               "nccl_trace": trace})
 
 
 def gpipe(torch, TS, T, device):
@@ -2471,15 +2617,20 @@ def gpipe(torch, TS, T, device):
     AdamW moments, remat, dense attention) through the GPipe step with
     both stages in one process on the card: 2 stages of 12 layers, 4
     microbatches of 1 × 1,024 tokens, the ``train`` phase's schedule
-    (lr 3e-4, 10 warm-up steps).  Two pipeline steps from one seeded
-    state and two ``make_train_step`` steps from the same seed on the
-    same batches, memory released between them: losses and grad norms
-    must agree, and the parameters too, but for elements whose update
-    AdamW's first steps turn on a gradient's rounding (each step moves an
-    element by up to lr_t whatever |g|; their share is bounded).  One
-    more pipeline step runs under the profiler.  On one card the stages
-    run in turn; the bubble (S − 1)/T is the multi-device schedule's."""
-    from torch.utils import _pytree as pytree
+    (lr 3e-4, 10 warm-up steps).  ``GPIPE_GRAPH_STEPS`` steps of
+    ``make_pp_train_fn``'s eager step from one seeded state, then
+    ``GPIPE_STEPS`` of ``make_train_step`` from the same seed on the same
+    batches, then the pipeline's steps again through its CUDA graph, each
+    run freed before the next (two states of the model do not fit beside
+    a working set).  The plain steps must agree with the pipeline's
+    first: losses and grad norms, and the parameters too but for
+    elements whose update AdamW's first steps turn on a gradient's
+    rounding (each step moves an element by up to lr_t whatever |g|;
+    their share is bounded).  The graph must equal the eager pipeline bit
+    for bit: losses and grad norms at every step, every parameter after
+    the last.  Each pipeline run takes one more step under the profiler.
+    On one card the stages run in turn; the bubble (S − 1)/T is the
+    multi-device schedule's."""
     from repro_torch.configs import get_arch
     from repro_torch.data import make_batch_iterator
     from repro_torch.train import pipeline as PP
@@ -2489,49 +2640,34 @@ def gpipe(torch, TS, T, device):
                            microbatches=GPIPE_MICROBATCHES)
     it = make_batch_iterator(cfg, GPIPE_MICROBATCHES, TRAIN_SEQ, seed=1,
                              device="cpu")
-    batches = [next(it) for _ in range(GPIPE_STEPS)]
-
-    def run(init, make):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        params, state = init()
-        step = make()
-        metrics, ms = [], []
-        for b in batches:
-            b = {k: v.to(device) for k, v in b.items()}
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            params, state, m = step(params, state, b)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t))
-            metrics.append({k: float(v) for k, v in m.items()})
-        return params, state, step, b, metrics, ms
-
-    params, state, step, batch, pp_m, pp_ms = run(
-        lambda: PP.init_pp_state(cfg, tc, pc, seed=0, device=device),
-        lambda: PP.make_pp_train_step(cfg, tc, pc))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    on_card(torch, (params, state), "the pipeline's train state")
-    dev_ms, launches, out = profile_step(
-        torch, lambda: step(params, state, batch))
-    del out
-    host = [t.cpu() for t in pytree.tree_leaves(params)]
-    del params, state, step
-    torch.cuda.empty_cache()
-    params, state, _, _, plain_m, plain_ms = run(
+    batches = [next(it) for _ in range(GPIPE_GRAPH_STEPS)]
+    kw = dict(device=device,
+              make_fn=lambda: PP.make_pp_train_fn(cfg, tc, pc),
+              init=lambda: PP.init_pp_state(cfg, tc, pc, seed=0,
+                                            device=device))
+    eager, kept = step_run(torch, batches=batches, graph=False,
+                           keep=(GPIPE_STEPS, GPIPE_GRAPH_STEPS), **kw)
+    plain, plain_kept = step_run(
+        torch, lambda: TS.make_train_fn(cfg, tc),
         lambda: TS.init_train_state(cfg, tc, seed=0, device=device),
-        lambda: TS.make_train_step(cfg, tc))
-    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        batches[:GPIPE_STEPS], device, graph=False, keep=(GPIPE_STEPS,),
+        profile=False)
+    pp_m, plain_m = eager["metrics"][:GPIPE_STEPS], plain["metrics"]
     rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
            for a, b in zip(pp_m, plain_m)]
     worst, n, over = 0.0, 0, {1e-7: 0, 1e-6: 0, GPIPE_PARAM_TOL: 0}
-    for a, b in zip(host, pytree.tree_leaves(params)):
-        d = (a.to(device) - b).abs()
+    for a, b in zip(kept.pop(GPIPE_STEPS), plain_kept.pop(GPIPE_STEPS)):
+        d = (a.to(device) - b.to(device)).abs()
         worst = max(worst, float(d.max()))
         n += d.numel()
         for tol in over:
             over[tol] += int((d > tol).sum())
-    del params, state, host, d
+    del d
+    graph, graph_kept = step_run(torch, batches=batches, graph=True,
+                                 keep=(GPIPE_GRAPH_STEPS,), **kw)
+    graph_equals_eager(torch, eager, graph, kept[GPIPE_GRAPH_STEPS],
+                       graph_kept[GPIPE_GRAPH_STEPS], "the GPipe step")
+    del kept, graph_kept
     torch.cuda.empty_cache()
     lr_sum = sum(float(tc.lr * min(1.0, (i + 1) / tc.warmup))
                  for i in range(GPIPE_STEPS))
@@ -2539,19 +2675,19 @@ def gpipe(torch, TS, T, device):
     emit("gpipe", arch=cfg.name, layers=cfg.n_layers, stages=GPIPE_STAGES,
          layers_per_stage=cfg.n_layers // GPIPE_STAGES,
          microbatches=GPIPE_MICROBATCHES, microbatch=[1, TRAIN_SEQ],
-         steps=GPIPE_STEPS, dtype="fp32", remat=True, impl="dense",
-         lr=tc.lr, warmup=tc.warmup, pipeline=pp_m, plain=plain_m,
-         rel_diff_per_step=rel, params_max_abs=worst, params=n,
+         steps=GPIPE_GRAPH_STEPS, plain_steps=GPIPE_STEPS, dtype="fp32",
+         remat=True, impl="dense", lr=tc.lr, warmup=tc.warmup,
+         pipeline=pp_m, plain=plain_m, rel_diff_per_step=rel,
+         params_max_abs=worst, params=n,
          params_over={str(k): v for k, v in over.items()},
          tol_loss_rel=GPIPE_LOSS_TOL, tol_grad_norm_rel=GPIPE_NORM_TOL,
          tol_params=GPIPE_PARAM_TOL, tol_params_over_share=GPIPE_FLIP_SHARE,
-         step_ms_each=pp_ms, plain_step_ms_each=plain_ms,
-         device_ms_per_step=dev_ms, launches_per_step=launches,
-         device_idle_share=1 - dev_ms / pp_ms[-1], peak_gb=peak_gb,
-         plain_peak_gb=plain_peak_gb, ticks=ticks,
+         graph_equals_eager="losses and grad norms at every step, params "
+         "after the last, bit for bit",
+         eager=eager, graph=graph,
+         plain_step_ms_each=plain["step_ms_each"],
+         plain_peak_gb=plain["peak_gb"], ticks=ticks,
          bubble_of_the_schedule=(GPIPE_STAGES - 1) / ticks)
-    if not all(np.isfinite([m[k] for m in pp_m for k in m])):
-        raise AssertionError(f"non-finite pipeline metrics: {pp_m}")
     for i, r in enumerate(rel):
         if r["loss"] > GPIPE_LOSS_TOL or r["grad_norm"] > GPIPE_NORM_TOL:
             raise AssertionError(f"step {i + 1}: pipeline and plain step "
@@ -2740,7 +2876,10 @@ def dryrun(torch, T, TS, device):
     sequences (decode_32k's batch cut 128 → 2).  Each is counted once on
     the card and once on meta tensors (dot flops and bytes must be
     equal), then its device time is taken with ``profile_step`` after a
-    warm-up call; the counted terms use ``Roofline``'s H100 datasheet
+    warm-up call, and it is timed on the host eagerly and through its CUDA
+    graph (``make_train_fn``, whose first call must give the eager step's
+    loss; ``make_decode_fn``, whose logits must agree within
+    ``GRAPH_REL_TOL``); the counted terms use ``Roofline``'s H100 datasheet
     peaks at bf16.  The host's DTensor count of each cell (one rank's
     products × ranks) must equal the card's plain count of the cut batch
     times the cut (256/4 and 128/2): the sharded step does the plain
@@ -2748,6 +2887,7 @@ def dryrun(torch, T, TS, device):
     import dataclasses
     import torch.distributed as dist
     from torch.utils import _pytree as pytree
+    import repro_torch.serve as serve
     from repro_torch.configs import SHAPES, ShapeConfig, get_arch
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.launch import dryrun as D
@@ -2824,10 +2964,38 @@ def dryrun(torch, T, TS, device):
                pytree.tree_leaves(out[2])):
         raise AssertionError("the dry-run train step's metrics are not "
                              "finite")
-    del out, params, state, batch
+    loss = out[2]["loss"].clone()
+    del out
+    # the same step eagerly and through its CUDA graph, which adopts the
+    # trees (the eager step never changed them)
+    eager_ms = synced_ms(torch, lambda: step(params, state, batch))
+    torch.cuda.reset_peak_memory_stats()
+    fn = TS.make_train_fn(cfg, tc)
+    first = fn(params, state, batch)[2]["loss"]
+    if not torch.equal(first, loss):
+        raise AssertionError("the train graph's first call differs from "
+                             "the eager step")
+    graph_ms = synced_ms(torch, lambda: fn(params, state, batch))
+    graph_dev_ms, graph_launches, out = profile_step(
+        torch, lambda: fn(params, state, batch))
+    if not torch.isfinite(out[2]["loss"]).all():
+        raise AssertionError("the train graph's loss is not finite")
+    del out
+    enqueue_ms = _enqueue_ms(torch, lambda: fn(params, state, batch))
+    train_graph = {"eager_ms_each": eager_ms, "graph_ms_each": graph_ms,
+                   "eager_ms": statistics.median(eager_ms),
+                   "graph_ms": statistics.median(graph_ms),
+                   "graph_device_ms": graph_dev_ms,
+                   "graph_launches": graph_launches,
+                   "graph_enqueue_ms": enqueue_ms,
+                   "capture_ms": 1e3 * fn.capture_s,
+                   "nodes": fn.last.nodes, "kernel_nodes": fn.last.kernels,
+                   "graph_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del fn, first, params, state, batch
     torch.cuda.empty_cache()
     cut = ShapeConfig("train_4k_b4", seq, DRYRUN_TRAIN_BATCH, "train")
     train = _dryrun_row(R, cfg, cut, card, meta, dev_ms, launches)
+    train.update(train_graph)
     _dryrun_scaled(cells, "train_4k", card, SHAPES["train_4k"].global_batch
                    // DRYRUN_TRAIN_BATCH)
     train["train_flops_hand"] = train_flops(cfg, DRYRUN_TRAIN_BATCH, seq)
@@ -2862,17 +3030,62 @@ def dryrun(torch, T, TS, device):
                                  "not finite")
         cache_gb = sum(v.numel() * v.element_size()
                        for v in cache.values()) / 1e9
-    del params, cache, logits
+        # eagerly and through its CUDA graph, the position a device
+        # scalar; every call writes the same slot with the same token
+        eager_ms = synced_ms(torch, lambda: dec(params, cache, inputs),
+                             DRYRUN_DECODES)
+        decode_fn = serve.make_decode_fn(cfg)
+        tinputs = {"tokens": inputs["tokens"], "length": torch.tensor(
+            inputs["length"], dtype=torch.int32, device=device)}
+        decode_fn(params, cache, tinputs)
+        graph_ms = synced_ms(torch, lambda: decode_fn(params, cache,
+                                                      tinputs),
+                             DRYRUN_DECODES)
+        graph_dev_ms, graph_launches, (glogits, _) = profile_step(
+            torch, lambda: decode_fn(params, cache, tinputs))
+        enqueue_ms = _enqueue_ms(torch, lambda: decode_fn(params, cache,
+                                                          tinputs))
+        scale = float(logits.float().abs().max())
+        rel = float((glogits.float() - logits.float()).abs().max()) / scale
+        if not rel <= GRAPH_REL_TOL:
+            raise AssertionError(f"the decode graph's logits differ from "
+                                 f"the eager step's by {rel} of their scale")
+        decode_graph = {"eager_ms_each": eager_ms, "graph_ms_each": graph_ms,
+                        "eager_ms": statistics.median(eager_ms),
+                        "graph_ms": statistics.median(graph_ms),
+                        "graph_device_ms": graph_dev_ms,
+                        "graph_launches": graph_launches,
+                        "graph_enqueue_ms": enqueue_ms,
+                        "capture_ms": 1e3 * decode_fn.last.capture_s,
+                        "nodes": decode_fn.last.nodes,
+                        "kernel_nodes": decode_fn.last.kernels,
+                        "logits_rel_diff": rel}
+    del params, cache, logits, glogits, decode_fn
     torch.cuda.empty_cache()
     cut = ShapeConfig("decode_32k_b2", dcfg_shape.seq_len,
                       DRYRUN_DECODE_BATCH, "decode")
     decode = _dryrun_row(R, cfg, cut, card, meta, dev_ms, launches)
+    decode.update(decode_graph)
     _dryrun_scaled(cells, "decode_32k", card,
                    dcfg_shape.global_batch // DRYRUN_DECODE_BATCH)
     decode["cache_gb"] = cache_gb
     emit("dryrun", families=families, families_s=families_s,
          host_cells=cells, host_s=host_s, train=train,
          decode=decode, hardware=dataclasses.asdict(R.H100))
+
+
+def synced_ms(torch, fn, n=DRYRUN_TIMED):
+    """The host's ms of each of ``n`` calls of ``fn``, each bounded by a
+    synchronize."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        del out
+    return ms
 
 
 def _dryrun_scaled(cells, shape, card, cut):
@@ -3947,17 +4160,17 @@ def main() -> int:
     lm_example(torch, fa, device)
 
     # training: internlm2-1.8b at full width, card against host, resume,
-    # int8 compression on an NCCL group (no hand-written kernel: the
-    # reference trains with impl="dense", and its Pallas kernels have no
-    # gradient)
+    # int8 compression on an NCCL group, eager and through its graph (no
+    # hand-written kernel: the reference trains with impl="dense", and its
+    # Pallas kernels have no gradient)
     train_full(torch, TL, TS, T, device)
     train_vs_host(torch, TS, T, device)
     train_resume(torch, TL, TS, device)
     int8_pod(torch, TS, device)
 
     # the launch stack: the GPipe step at full width (both stages in one
-    # process) against the plain step, and the sharding rules on a
-    # one-rank NCCL mesh
+    # process) against the plain step and through its graph, and the
+    # sharding rules on a one-rank NCCL mesh
     gpipe(torch, TS, T, device)
     shard_rules(torch, T, device)
     # the dry-run's cells on the host, and its counted bound against the

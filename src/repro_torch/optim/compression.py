@@ -110,8 +110,12 @@ def tree_compressed_psum(grads, group=None, errors=None):
                 for g in leaves]
     else:
         errs = spec.flatten_up_to(errors)
-    out = [_dtensor_psum(g, group, e) if is_dtensor(g)
-           else compressed_psum(g, group, e) for g, e in zip(leaves, errs)]
-    return (pytree.tree_unflatten([o[0] for o in out], spec),
-            pytree.tree_unflatten([o[1].to(torch.bfloat16) for o in out],
-                                  spec))
+    avg, new_errs = [], []
+    for g, e in zip(leaves, errs):
+        a, err = (_dtensor_psum if is_dtensor(g) else compressed_psum)(
+            g, group, e)
+        avg.append(a)
+        # cast as it comes: one fp32 residual alive at a time
+        new_errs.append(err.to(torch.bfloat16))
+    return (pytree.tree_unflatten(avg, spec),
+            pytree.tree_unflatten(new_errs, spec))

@@ -24,6 +24,10 @@ microbatch's activations from one stage to the next:
   the ranks, as the reference's psum does (``pipeline.py:146-149``): a
   tied ``embed`` (mamba2-130m) takes its gradient from both end stages.
 
+The reference jits its step (``repro/launch/dryrun.py:245``); the
+counterpart here is :func:`make_pp_train_fn`, one CUDA graph a batch shape
+on the card for the stages in one process (``train.step.TrainFn``).
+
 Against the reference (ROADMAP C5, C6):
 
 * C5, not reproduced: the gradient norm reported and clipped is the
@@ -74,7 +78,9 @@ def _stage_forward(blocks, x, cos, sin, cfg: ArchConfig, rules):
 
 
 class _Handoff:
-    """The hop between stages in one process."""
+    """The hop between stages in one process.  Every activation sent is
+    received at the next tick, so the wire is empty when the loss is
+    taken: nothing of a captured step is held outside its graph."""
 
     def __init__(self):
         self._wire = {}
@@ -86,6 +92,9 @@ class _Handoff:
         return self._wire.pop((stage, m))
 
     def loss(self, total, n_tokens: int):
+        if self._wire:
+            raise RuntimeError(f"activations {sorted(self._wire)} were "
+                               f"sent and never received")
         return total / n_tokens
 
 
@@ -303,6 +312,29 @@ def make_pp_train_step(cfg: ArchConfig, tc: TS.TrainConfig,
                          lambda: grads(params, batch), None, clip)
 
     return step_fn
+
+
+def make_pp_train_fn(cfg: ArchConfig, tc: TS.TrainConfig,
+                     pc: PipelineConfig,
+                     rules: Optional[T.ShardRules] = None,
+                     group=None) -> TS.TrainFn:
+    """The counterpart of the reference's jitted GPipe step:
+    :func:`make_pp_train_step` as a ``train.step.TrainFn``, which works
+    as ``make_train_fn`` does.  On CPU tensors it is the eager step (a
+    gloo group's too).  On the card, with the stages in one process
+    (``group`` None), it keeps one CUDA graph a batch shape, the params
+    and the optimizer state donated and updated in place inside it; the
+    recomputation of each block in the backward is captured with the rest.
+    A group of more than one rank raises on the card before any launch:
+    one card holds one NCCL rank, so its hops cannot be captured there
+    (ROADMAP A9.5)."""
+    step = make_pp_train_step(cfg, tc, pc, rules, group)
+    refuse = None
+    if group is not None and dist.get_world_size(group) > 1:
+        refuse = (f"the GPipe step over {dist.get_world_size(group)} "
+                  f"ranks is not captured on the card: one card holds one "
+                  f"NCCL rank (ROADMAP A9.5); run it on the host")
+    return TS.TrainFn(step, refuse)
 
 
 def _opt_specs(opt_state, pc: PipelineConfig):

@@ -17,11 +17,13 @@ Gradients come from ``torch.autograd.grad`` over leaves detached from the
 caller's tensors, so a step never mutates its inputs: it returns new
 params and a new state, as the reference's jitted step does.
 
-The reference jits that step (``repro/launch/train.py:57``); its
-counterpart here is :func:`make_train_fn`, one captured CUDA graph a
-batch shape on the card, which updates the params and the optimizer
-state in place, as a jitted step with donated arguments does.  The
-int8 step and the GPipe step (``train/pipeline.py``) stay eager.
+The reference jits that step (``repro/launch/train.py:57``), its int8
+step (``repro/launch/dryrun.py:127``) and its GPipe step (``:245``); their
+counterparts here are :func:`make_train_fn`,
+:func:`make_compressed_train_fn` and ``pipeline.make_pp_train_fn``, each a
+:class:`TrainFn`: one captured CUDA graph a batch shape on the card, which
+updates the params and the optimizer state in place, as a jitted step with
+donated arguments does.
 """
 from __future__ import annotations
 
@@ -242,8 +244,10 @@ def _apply(opt, tc: TrainConfig, params, state, grad_fn, group,
     new_state = dict(state)
     if tc.grad_compression == "int8_pod":
         # one scale a reference leaf: the blocks' scales are taken over
-        # each (L, ...) stack, as the reference's are
-        grads, ef = tree_compressed_psum(convert.stack_blocks(grads), group,
+        # each (L, ...) stack, as the reference's are; the per-layer
+        # gradients are freed once stacked
+        grads = convert.stack_blocks(grads)
+        grads, ef = tree_compressed_psum(grads, group,
                                          convert.stack_blocks(state["ef"]))
         grads = pytree.tree_map(lambda g, p: g.to(p.dtype),
                                 convert.unstack_blocks(grads, params), params)
@@ -334,17 +338,21 @@ class TrainGraph:
 
 
 class TrainFn:
-    """:func:`make_train_fn`'s result, ``step(params, state, batch) ->
-    (params, state, metrics)``.  ``eager`` is :func:`make_train_step` at
-    this function's settings, which mutates nothing; ``graphs`` maps each
+    """A train step compiled, ``step(params, state, batch) -> (params,
+    state, metrics)``: :func:`make_train_fn`'s, :func:`make_compressed_
+    train_fn`'s and ``pipeline.make_pp_train_fn``'s result.  ``eager`` is
+    the step it was made from, which mutates nothing; ``graphs`` maps each
     key to its :class:`TrainGraph`; ``last`` is the graph of the last
     call (None on the host); ``pool`` is the memory pool its graphs
     share; ``captures`` and ``capture_s`` count the graphs it captured
     and the seconds that took; ``params`` and ``state`` are its buffers
-    on the card (None before its first call there)."""
+    on the card (None before its first call there).  ``refuse``, where
+    given, says why this step cannot be captured: a call on the card
+    raises it before any launch."""
 
-    def __init__(self, cfg: ArchConfig, tc: TrainConfig, rules=None):
-        self.eager = make_train_step(cfg, tc, rules)
+    def __init__(self, eager, refuse: Optional[str] = None):
+        self.eager = eager
+        self.refuse = refuse
         self.graphs: Dict[tuple, TrainGraph] = {}
         self.last: Optional[TrainGraph] = None
         self.pool = None
@@ -380,6 +388,13 @@ class TrainFn:
         if dev.type != "cuda":
             self.last = None
             return self.eager(params, state, batch)
+        if self.refuse:
+            raise RuntimeError(self.refuse)
+        if any(L.is_dtensor(t) for t in pytree.tree_leaves(
+                (params, state, batch))):
+            raise TypeError("a train step's CUDA graph takes plain "
+                            "tensors: DTensor steps run on meta only (the "
+                            "dry-run)")
         self._load(params, state)
         key = (dev, _spec(batch))
         g = self.graphs.get(key)
@@ -418,7 +433,7 @@ def make_train_fn(cfg: ArchConfig, tc: TrainConfig,
     before it.  A call with other leaves (a resumed checkpoint) copies
     them into the buffers; the function keeps no second tree.  A capture
     that cannot be made raises, after the warm-up's step was applied."""
-    return TrainFn(cfg, tc, rules)
+    return TrainFn(make_train_step(cfg, tc, rules))
 
 
 def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group,
@@ -459,3 +474,24 @@ def make_compressed_train_step(cfg: ArchConfig, tc: TrainConfig, group,
         return params, state, {k: pmean(v) for k, v in metrics.items()}
 
     return step_fn
+
+
+def make_compressed_train_fn(cfg: ArchConfig, tc: TrainConfig, group,
+                             rules: Optional[T.ShardRules] = None) -> TrainFn:
+    """The counterpart of the reference's jitted int8 step
+    (``repro/launch/dryrun.py:127``): :func:`make_compressed_train_step`
+    over ``group`` as a :class:`TrainFn`, which works as
+    :func:`make_train_fn` does.  On CPU tensors it is the eager step (a
+    gloo group).  On the card each batch key is one CUDA graph holding
+    the group's collectives (the scales' MAX all-reduce, the metrics'
+    mean; with more ranks also the all-to-all and the all-gather of the
+    int8 codes): NCCL sets up its communicator at the first collective,
+    in a key's eager warm-up.  ``ProcessGroupNCCL`` (torch 2.11) gives a
+    collective issued under capture no watchdog work and no flight
+    recorder entry, so no event recorded in the capture is ever queried
+    and the function needs no setting or explicit wait; a replay runs the
+    collectives as kernel nodes.  Free the function's graphs before
+    destroying the group.  The params, the optimizer state and the error
+    buffers are donated.  ``DTensor`` trees (the dry-run's) run on meta
+    only: on the card they raise."""
+    return TrainFn(make_compressed_train_step(cfg, tc, group, rules))

@@ -1413,6 +1413,215 @@ def test_cuda_train_graph_resume_equals_a_straight_run(sm90_device,
 
 
 # ---------------------------------------------------------------------------
+# the GPipe step (stages in one process) and the int8 step (a one-rank NCCL
+# group) as CUDA graphs: make_pp_train_fn, make_compressed_train_fn
+# ---------------------------------------------------------------------------
+
+STEP_GRAPHS = ["pp_graph", "int8_graph"]
+
+
+@pytest.fixture
+def nccl_group(sm90_device):
+    """A one-rank NCCL default group on the card, destroyed after the
+    test (and after the graphs the test made, which are its locals)."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+def _step_graph(kind, request):
+    """Reduced internlm2-1.8b's (cfg, tc, TS, 3 batches of 4 × 64, the
+    compiled step of ``kind``): the GPipe step over 2 stages and 2
+    microbatches, or the int8 step on a one-rank NCCL group."""
+    from repro_torch.train import pipeline as PP
+    if kind == "pp_graph":
+        cfg, tc, TS, batches = _train_setup()
+        fn = PP.make_pp_train_fn(cfg, tc, PP.PipelineConfig(2, 2))
+    else:
+        cfg, tc, TS, batches = _train_setup(grad_compression="int8_pod")
+        fn = TS.make_compressed_train_fn(
+            cfg, tc, request.getfixturevalue("nccl_group"))
+    return cfg, tc, TS, batches, fn
+
+
+@pytest.mark.parametrize("kind", STEP_GRAPHS)
+def test_cuda_step_graph_is_the_eager_step(sm90_device, kind, request):
+    """The compiled GPipe or int8 step against its eager step from the
+    same params and state: three batches of 4 × 64 (a first call, the
+    eager warm-up on the capture stream, then two replays), then two of
+    4 × 32 (a second key's first call and a replay); every metric, and
+    then every param and state leaf (the bf16 error buffers too), bit
+    for bit; two graphs, whose returned trees are the function's own
+    buffers."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.data import make_batch_iterator
+    cfg, tc, TS, batches, fn = _step_graph(kind, request)
+    it = make_batch_iterator(cfg, 4, 32, seed=5, device="cpu")
+    batches += [next(it), next(it)]
+    pe, se = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    pg, sg = pytree.tree_map(torch.clone, (pe, se))
+    own = pytree.tree_leaves((pg, sg))
+    for i, b in enumerate(_card_batches(batches, sm90_device)):
+        pe, se, want = fn.eager(pe, se, b)
+        pg, sg, got = fn(pg, sg, b)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+        assert pytree.tree_leaves((pg, sg)) == own
+    for a, b in zip(own, pytree.tree_leaves((pe, se))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(sg["step"]) == 5 and ("ef" in sg) == (kind == "int8_graph")
+    assert len(fn.graphs) == 2 and fn.captures == 2
+    g = fn.last
+    assert g.capture_s > 0 and g.nodes >= g.kernels > 0
+
+
+@pytest.mark.parametrize("kind", STEP_GRAPHS)
+def test_cuda_step_graph_copies_a_foreign_tree_in(sm90_device, kind,
+                                                  request):
+    """After two steps of tree A, a call with tree B (another seed's
+    params and state) copies B into the function's buffers and steps it:
+    the result equals the eager step of B bit for bit, the returned
+    leaves stay the function's, and B's leaves are not kept."""
+    import weakref
+    from torch.utils import _pytree as pytree
+    cfg, tc, TS, batches, fn = _step_graph(kind, request)
+    batches = _card_batches(batches, sm90_device)
+    pa, sa = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    for b in batches[:2]:
+        pa, sa, _ = fn(pa, sa, b)
+    own = pytree.tree_leaves((pa, sa))
+    pb, sb = TS.init_train_state(cfg, tc, seed=2, device=sm90_device)
+    pw, sw, want = fn.eager(pb, sb, batches[2])
+    gone = weakref.ref(pb["embed"])
+    p, s, got = fn(pb, sb, batches[2])
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert pytree.tree_leaves((p, s)) == own
+    for a, b in zip(own, pytree.tree_leaves((pw, sw))):
+        assert torch.equal(a, b)
+    del pb, sb
+    assert gone() is None
+    assert len(fn.graphs) == 1
+
+
+@pytest.mark.parametrize("kind", STEP_GRAPHS)
+def test_cuda_step_graph_capture_that_syncs_raises(sm90_device, kind,
+                                                   request, monkeypatch):
+    """A step that reads its loss on the host (the GPipe loss, or the int8
+    step's gradients before any collective, patched to call ``.item()``)
+    runs in the eager warm-up but cannot be captured: the call raises, no
+    graph is kept, nothing comes back from an eager fallback, and the
+    card goes on working."""
+    from repro_torch.train import pipeline as PP
+    from repro_torch.train import step as TS
+    if kind == "pp_graph":
+        loss = PP._Handoff.loss
+
+        def syncing(self, total, n_tokens):
+            total.item()
+            return loss(self, total, n_tokens)
+
+        monkeypatch.setattr(PP._Handoff, "loss", syncing)
+    else:
+        grads = TS._grads
+
+        def syncing(*args, **kwargs):
+            g, metrics = grads(*args, **kwargs)
+            metrics["loss"].item()
+            return g, metrics
+
+        monkeypatch.setattr(TS, "_grads", syncing)
+    cfg, tc, TS, batches, fn = _step_graph(kind, request)
+    params, state = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    with pytest.raises(RuntimeError):
+        fn(params, state, _card_batches(batches, sm90_device)[0])
+    assert fn.graphs == {} and fn.last is None
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    x = torch.ones(4, device=sm90_device)
+    assert float((x + 1).sum()) == 8.0
+
+
+def test_cuda_pp_graph_refuses_two_stage_ranks(sm90_device):
+    """The GPipe function over two stage ranks (a fake two-rank group,
+    rank 0's stage) raises on a card batch, naming ROADMAP A9.5, before
+    it adopts a tree; on the host it is the eager step's function."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.train import pipeline as PP
+    cfg, tc, TS, batches = _train_setup()
+    pc = PP.PipelineConfig(2, 2)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        fn = PP.make_pp_train_fn(cfg, tc, pc, group=dist.group.WORLD)
+        params, state = PP.init_pp_state(cfg, tc, pc, stage=0, seed=1,
+                                         device=sm90_device)
+        with pytest.raises(RuntimeError, match="A9.5"):
+            fn(params, state, _card_batches(batches, sm90_device)[0])
+        assert fn.params is None and fn.graphs == {}
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_int8_graph_refuses_dtensors(sm90_device, nccl_group):
+    """The int8 function takes plain tensors on the card: params
+    replicated as DTensors on a one-rank NCCL mesh (the dry-run's form,
+    which runs on meta) raise before any launch."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.utils import _pytree as pytree
+    cfg, tc, TS, batches = _train_setup(grad_compression="int8_pod")
+    fn = TS.make_compressed_train_fn(cfg, tc, nccl_group)
+    params, state = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+    dparams = pytree.tree_map(
+        lambda t: distribute_tensor(t, mesh, [Replicate()]), params)
+    with pytest.raises(TypeError, match="plain"):
+        fn(dparams, state, _card_batches(batches, sm90_device)[0])
+    assert fn.params is None and fn.graphs == {}
+
+
+def test_cuda_int8_graph_replays_beside_the_nccl_watchdog(sm90_device,
+                                                          nccl_group):
+    """The int8 graph's NCCL collectives replay while the group's
+    watchdog runs: 20 replays with eager all-reduces and pauses of a few
+    watchdog periods between them, each step equal to the eager step bit
+    for bit, then an eager collective on the default stream and the
+    group destroyed cleanly (by the fixture)."""
+    import time
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+    cfg, tc, TS, batches = _train_setup(grad_compression="int8_pod")
+    fn = TS.make_compressed_train_fn(cfg, tc, nccl_group)
+    pe, se = TS.init_train_state(cfg, tc, seed=1, device=sm90_device)
+    pg, sg = pytree.tree_map(torch.clone, (pe, se))
+    b = _card_batches(batches, sm90_device)[0]
+    probe = torch.ones(8, device=sm90_device)
+    for i in range(21):
+        pe, se, want = fn.eager(pe, se, b)
+        pg, sg, got = fn(pg, sg, b)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+        dist.all_reduce(probe, group=nccl_group)
+        if i % 5 == 0:
+            torch.cuda.synchronize()
+            time.sleep(0.3)
+    for a, b in zip(pytree.tree_leaves((pg, sg)), pytree.tree_leaves((pe, se))):
+        assert torch.equal(a, b)
+    assert fn.captures == 1 and int(sg["step"]) == 21
+    assert torch.equal(probe, torch.ones(8, device=sm90_device))
+
+
+# ---------------------------------------------------------------------------
 # the outlier models' compiled functions (ml.kmeans, ml.autoencoder,
 # ml.isoforest): one CUDA graph a key, functional, thread-safe, the forest's
 # generator seeded again before every replay
