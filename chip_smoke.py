@@ -914,6 +914,10 @@ class CheckedDecode:
     def last(self):
         return self.decode.last
 
+    @property
+    def capture_s(self):
+        return self.decode.capture_s
+
     def __call__(self, params, cache, inputs):
         torch = self.torch
         if cache is not self._cache:

@@ -30,6 +30,13 @@ Two storage modes:
   are bucket-resolution approximations (≲4 % relative error) instead of
   exact order statistics.  Aggregation stays deterministic: sketches are
   a pure function of the folded spans.
+
+Beside the message stamps, a registry times the program's own layers as
+nested **spans** (:meth:`MetricsRegistry.span`, on the registry's clock):
+a registry is a :class:`repro_torch.spans.SpanTable`, whose leaf module
+this one re-exports with :class:`LatencySketch`, :func:`spans_between`,
+:data:`RANGE_PREFIX` and :data:`REGISTRY`, the process-wide table the LM
+stack records into.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.sim.clock import NULL_LOCK, as_clock
+from repro_torch.spans import (RANGE_PREFIX, REGISTRY,  # noqa: F401
+                               LatencySketch, SpanTable, spans_between)
 
 
 @dataclass
@@ -65,110 +74,6 @@ _SKETCH_SPANS: Tuple[Tuple[str, str], ...] = (
     *zip(EVENTS[:-1], EVENTS[1:]), (EVENTS[0], EVENTS[-1]))
 
 
-class LatencySketch:
-    """Fixed-memory latency distribution: log-spaced bucket histogram.
-
-    Buckets span ``[LO, HI)`` seconds at ``PER_DECADE`` buckets per decade
-    (relative bucket width ``10**(1/PER_DECADE) - 1`` ≈ 3.7 %), with an
-    underflow bucket below ``LO`` and an overflow bucket above ``HI``.
-    ``count``/``total``/``min``/``max`` are tracked exactly, so ``mean``
-    is exact and only the interior percentiles are bucket-resolution
-    approximations.  Deterministic: the state is a pure function of the
-    added values (no sampling, no randomized compaction)."""
-
-    LO = 1e-7                      # 100 ns: below any virtual hop latency
-    HI = 1e6                       # ~11.6 virtual days
-    PER_DECADE = 64
-
-    __slots__ = ("counts", "count", "total", "min", "max")
-
-    _N_INTERIOR = int(round((math.log10(HI) - math.log10(LO)) * PER_DECADE))
-    _LOG_LO = math.log10(LO)
-
-    def __init__(self):
-        # [0] underflow, [1.._N_INTERIOR] interior, [-1] overflow
-        self.counts = [0] * (self._N_INTERIOR + 2)
-        self.count = 0
-        self.total = 0.0
-        self.min = math.inf
-        self.max = -math.inf
-
-    def add(self, x: float) -> None:
-        self.count += 1
-        self.total += x
-        if x < self.min:
-            self.min = x
-        if x > self.max:
-            self.max = x
-        if x < self.LO:
-            idx = 0
-        else:
-            idx = 1 + int((math.log10(x) - self._LOG_LO) * self.PER_DECADE)
-            if idx > self._N_INTERIOR:
-                idx = self._N_INTERIOR + 1
-        self.counts[idx] += 1
-
-    @property
-    def mean(self) -> float:
-        return self.total / self.count if self.count else 0.0
-
-    def percentile(self, q: float) -> float:
-        """Upper edge of the bucket holding the ``q``-quantile (``q`` in
-        [0, 1]); exact ``min``/``max`` are returned at the extremes and
-        every estimate is clamped into ``[min, max]``."""
-        if self.count == 0:
-            return 0.0
-        if q <= 0.0:
-            return self.min
-        if q >= 1.0:
-            return self.max
-        # the rank the exact-mode percentile uses: sorted()[int(q * n)]
-        rank = min(self.count - 1, int(q * self.count))
-        cum = 0
-        for idx, c in enumerate(self.counts):
-            cum += c
-            if cum > rank:
-                if idx == 0:
-                    edge = self.LO
-                else:
-                    edge = 10.0 ** (self._LOG_LO
-                                    + idx / self.PER_DECADE)
-                return min(max(edge, self.min), self.max)
-        return self.max              # unreachable (cum ends at count)
-
-    # -- cross-process merging (sharded DES) ------------------------------
-
-    def state(self) -> dict:
-        """Picklable snapshot for shipping a worker's sketch over a pipe."""
-        return {"counts": list(self.counts), "count": self.count,
-                "total": self.total, "min": self.min, "max": self.max}
-
-    @classmethod
-    def from_state(cls, st: dict) -> "LatencySketch":
-        sk = cls()
-        sk.counts = list(st["counts"])
-        sk.count = int(st["count"])
-        sk.total = float(st["total"])
-        sk.min = float(st["min"])
-        sk.max = float(st["max"])
-        return sk
-
-    def merge(self, other: "LatencySketch") -> None:
-        """Fold another sketch in.  Bucket counts, count, min and max merge
-        exactly, so merged percentiles are bit-identical to a single sketch
-        fed the union of values; only ``total`` (hence ``mean``) depends on
-        float summation order."""
-        if len(other.counts) != len(self.counts):
-            raise ValueError("cannot merge sketches with different layouts")
-        self.counts = [a + b for a, b in zip(self.counts, other.counts)]
-        self.count += other.count
-        self.total += other.total
-        if other.min < self.min:
-            self.min = other.min
-        if other.max > self.max:
-            self.max = other.max
-
-
 class _EventStats:
     """Running per-event aggregates (streaming mode): stamp count,
     first/last stamp time, and bytes attributed to the event."""
@@ -182,7 +87,7 @@ class _EventStats:
         self.bytes = 0.0
 
 
-class MetricsRegistry:
+class MetricsRegistry(SpanTable):
     """Process-wide registry: message traces + counters + gauges.
 
     One registry per pipeline run; injected into broker/runtime/pipeline so
@@ -205,8 +110,7 @@ class MetricsRegistry:
                  max_pending: int = 100_000):
         # accepts a Clock object, a bare now() callable (seed API), or None
         self.clock = as_clock(clock)
-        self._clock = self.clock.now
-        self._lock = threading.Lock()
+        super().__init__(self.clock.now)    # the spans' clock, lock, state
         self.streaming = streaming
         self.max_pending = max_pending
         self._traces: Dict[str, MessageTrace] = {}
@@ -447,3 +351,4 @@ class MetricsRegistry:
         """Traces folded into sketches (streaming mode only)."""
         with self._lock:
             return self._retired
+

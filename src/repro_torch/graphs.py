@@ -11,6 +11,15 @@ card (``serve.engine.PrefillGraph`` and ``DecodeGraph``,
 (``ml.kmeans``, ``ml.autoencoder``, ``ml.isoforest``) are :class:`GraphFn`
 objects: one graph a key, functional and thread-safe, since the cloud
 stage's workers call them at once.
+
+Every graph function records spans into the process-wide
+``repro_torch.spans.REGISTRY``: ``graphs.warm`` (:func:`_warmed`),
+``graphs.capture`` with its children ``graphs.stream_capture``
+(``capture_begin`` to ``capture_end``) and ``graphs.instantiate``
+(:func:`_captured`), ``graphs.nodes`` (the captured graph's nodes read
+back), and at a replay ``graphs.lookup`` (the key and the checks of the
+params tree), ``graphs.load`` (the copies into the graph's static inputs)
+and ``graphs.replay`` (the replay call alone).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import build
+from repro_torch.spans import REGISTRY
 
 
 def _kernel_nodes(cu, graph: "torch.cuda.CUDAGraph") -> Tuple[int, list]:
@@ -117,16 +127,17 @@ def _warmed(stream: "torch.cuda.Stream", fn):
     It starts after the current stream's queued work and the current
     stream waits for it; the tensors it returns are recorded on the
     current stream, where the caller uses them.  Returns what ``fn``
-    returned."""
-    cur = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(cur)
-    with torch.cuda.stream(stream):
-        out = fn()
-    cur.wait_stream(stream)
-    for t in pytree.tree_leaves(out):
-        if isinstance(t, torch.Tensor):
-            t.record_stream(cur)
-    return out
+    returned; the span ``graphs.warm`` times it."""
+    with REGISTRY.span("graphs.warm"):
+        cur = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = fn()
+        cur.wait_stream(stream)
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                t.record_stream(cur)
+        return out
 
 
 def _captured(stream: "torch.cuda.Stream", fn, pool=None, generators=()):
@@ -140,36 +151,44 @@ def _captured(stream: "torch.cuda.Stream", fn, pool=None, generators=()):
     ``generators`` are the CUDA ``torch.Generator``s that ``fn`` draws
     from: each is registered with the graph, which then reads its seed and
     offset at every replay (and moves the offset on by what the capture
-    drew)."""
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    for gen in generators:
-        graph.register_generator_state(gen)
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            out = fn()
-        except BaseException:
+    drew).
+
+    Spans: ``graphs.capture``, and inside it ``graphs.stream_capture``
+    and ``graphs.instantiate``."""
+    with REGISTRY.span("graphs.capture"):
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with REGISTRY.span("graphs.stream_capture"), \
+                torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
-                graph.capture_end()
-            except RuntimeError:        # the error above invalidated it
-                pass
-            raise
-        graph.capture_end()
-    graph.instantiate()
-    return graph, out, time.perf_counter() - t0
+                out = fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:    # the error above invalidated it
+                    pass
+                raise
+            graph.capture_end()
+        with REGISTRY.span("graphs.instantiate"):
+            graph.instantiate()
+        return graph, out, time.perf_counter() - t0
 
 
 class _GraphCache:
     """The graphs a graph function keeps (``graphs``, the least recently
-    used first, at most ``limit``) and the graph of its last call
-    (``last``, None on the host)."""
+    used first, at most ``limit``), the graph of its last call (``last``,
+    None on the host) and the graphs it dropped to make room
+    (``evictions``)."""
 
     limit: int
 
     def __init__(self):
         self.graphs: "OrderedDict[tuple, object]" = OrderedDict()
         self.last = None
+        self.evictions = 0
 
     def _graph(self, key):
         g = self.graphs.get(key)
@@ -182,6 +201,7 @@ class _GraphCache:
         outputs go back to the pool, for the next capture."""
         while len(self.graphs) >= self.limit:
             self.graphs.popitem(last=False)
+            self.evictions += 1
 
 
 class Captured(NamedTuple):
@@ -216,7 +236,8 @@ def _counted_capture(stream, fn, pool=None, generators=(),
         for c, n in counted:
             c.add(-n)
     counted = [(c, n) for c, n in counted if n]
-    nodes, names = graph_kernel_names(graph)
+    with REGISTRY.span("graphs.nodes"):
+        nodes, names = graph_kernel_names(graph)
     launches = [(c, n) for c, n in build.count_launches(names).items() if n]
     if dict(counted) != dict(launches):
         raise RuntimeError(
@@ -287,13 +308,15 @@ class _Graph:
 
     def replay(self, leaves):
         """Copy ``leaves`` in, replay, and return copies of the outputs."""
-        for idx in self._groups:
-            torch._foreach_copy_([self.inputs[i] for i in idx],
-                                 [leaves[i] for i in idx])
+        with REGISTRY.span("graphs.load"):
+            for idx in self._groups:
+                torch._foreach_copy_([self.inputs[i] for i in idx],
+                                     [leaves[i] for i in idx])
         if self.generator is not None:
             # the draws of the eager call, whose generator is new
             self.generator.manual_seed(self.seed)
-        self.graph.replay()
+        with REGISTRY.span("graphs.replay"):
+            self.graph.replay()
         for c, n in self.launches:
             c.add(n)
         return _unpack([f.clone() for f in self.flats], self.layout)
@@ -316,8 +339,9 @@ class GraphFn(_GraphCache):
     back to eager on the card.  The function keeps its ``limit`` most
     recently used graphs (``graphs``, least recently used first), all in
     one memory pool (``pool``); ``captures`` and ``capture_s`` count what
-    it captured and ``replays`` its replays, ``last`` is the graph of its
-    last call (None on the host).
+    it captured, ``evictions`` the graphs it dropped for room and
+    ``replays`` its replays, ``last`` is the graph of its last call (None
+    on the host).
 
     Unlike the serving and train graphs, it is functional and
     thread-safe, as the outlier loop needs:
@@ -381,13 +405,15 @@ class GraphFn(_GraphCache):
         if dev.type != "cuda":
             self.last = None
             return self.eager(*args, **static)
-        key = (spec, tuple((t.shape, t.dtype, t.device) for t in leaves),
-               tuple(sorted(static.items())))
         with self._lock:
             cur = torch.cuda.current_stream(dev)
             done = self._done.setdefault(dev, torch.cuda.Event())
             cur.wait_event(done)
-            g = self._graph(key)
+            with REGISTRY.span("graphs.lookup"):
+                key = (spec, tuple((t.shape, t.dtype, t.device)
+                                   for t in leaves),
+                       tuple(sorted(static.items())))
+                g = self._graph(key)
             if g is not None:
                 self.last = g
                 out = g.replay(leaves)

@@ -28,6 +28,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Sequence
 
+from repro_torch.spans import REGISTRY
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -113,17 +115,20 @@ def build_all() -> Dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Its first load, with the build, is the span ``kernels.library`` of the
+    process-wide ``repro_torch.spans.REGISTRY``."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = CSRC / f"{name}.cu"
-        out = _target(src)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _finish(name, _start(src, out), out)
-        lib = ctypes.CDLL(str(out))
+        with REGISTRY.span("kernels.library"):
+            src = CSRC / f"{name}.cu"
+            out = _target(src)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                _finish(name, _start(src, out), out)
+            lib = ctypes.CDLL(str(out))
         _libs[name] = lib
         return lib
 

@@ -33,6 +33,14 @@ static program: the position is a 0-d tensor on the device, so every step
 of every wave of a batch shape runs the same ops on the same shapes, and
 :func:`make_decode_fn` runs it as one graph a batch shape
 (:class:`DecodeGraph`).  On the host both run eagerly.
+
+The server and both functions record spans into the process-wide
+``repro_torch.spans.REGISTRY``: ``serve.wave`` (a wave, its prefill's
+graph spans included), and a decode step's ``serve.decode``, with its
+children ``serve.decode.inputs``, ``serve.decode.call`` (the
+decode function: ``graphs.lookup``, ``graphs.load``, ``graphs.replay``),
+``serve.decode.tokens`` (the argmax and the wait for the card) and
+``serve.decode.deliver``.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from repro_torch.graphs import (_capture_stream, _captured, _counted_capture,
                                 _GraphCache, _spec, _warmed, graph_nodes)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.spans import REGISTRY
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +204,12 @@ class PrefillGraph:
         return logits, cache
 
     def replay(self, inputs):
-        for k, v in inputs.items():
-            if v is not self.inputs[k]:
-                self.inputs[k].copy_(v)
-        self.graph.replay()
+        with REGISTRY.span("graphs.load"):
+            for k, v in inputs.items():
+                if v is not self.inputs[k]:
+                    self.inputs[k].copy_(v)
+        with REGISTRY.span("graphs.replay"):
+            self.graph.replay()
         for c, n in self.launches:
             c.add(n)
         return self.logits, dict(self.cache)
@@ -251,7 +262,8 @@ class PrefillFn(_ParamsGraphCache):
     :class:`PrefillGraph`, the least recently used first; ``last`` is the
     graph of the last call (None on the host); ``pool`` is the memory pool
     its graphs share; ``captures`` and ``capture_s`` count the graphs it
-    captured and the seconds that took, evicted graphs included."""
+    captured and the seconds that took, evicted graphs included;
+    ``evictions`` the graphs it dropped for room."""
 
     limit = MAX_PREFILL_GRAPHS
 
@@ -271,10 +283,11 @@ class PrefillFn(_ParamsGraphCache):
         if dev.type != "cuda":
             self.last = None
             return self.eager(params, inputs)
-        self._keep_params(params)
-        # the graph holds ``params``, so their id stays theirs
-        key = (id(params), dev, _spec(inputs))
-        g = self._graph(key)
+        with REGISTRY.span("graphs.lookup"):
+            self._keep_params(params)
+            # the graph holds ``params``, so their id stays theirs
+            key = (id(params), dev, _spec(inputs))
+            g = self._graph(key)
         if g is not None:
             self.last = g
             return g.replay(inputs)
@@ -359,7 +372,8 @@ class DecodeGraph:
         self.graph, (self.logits, _), self.capture_s = _captured(
             stream, lambda: T.decode_step(self.params, self.cfg, self.cache,
                                           self.inputs))
-        self.nodes, self.kernels = graph_nodes(self.graph)
+        with REGISTRY.span("graphs.nodes"):
+            self.nodes, self.kernels = graph_nodes(self.graph)
         return first
 
     def _load(self, cache, inputs) -> None:
@@ -370,8 +384,10 @@ class DecodeGraph:
                 self.cache[name].copy_(t)
 
     def replay(self, cache, inputs):
-        self._load(cache, inputs)
-        self.graph.replay()
+        with REGISTRY.span("graphs.load"):
+            self._load(cache, inputs)
+        with REGISTRY.span("graphs.replay"):
+            self.graph.replay()
         return self.logits, self.cache
 
 
@@ -379,13 +395,18 @@ class DecodeFn(_ParamsGraphCache):
     """:func:`make_decode_fn`'s result, ``decode(params, cache, inputs) ->
     (logits, cache)``.  ``graphs`` maps each key to its
     :class:`DecodeGraph`, the least recently used first; ``last`` is the
-    graph of the last call (None on the host)."""
+    graph of the last call (None on the host); ``captures`` and
+    ``capture_s`` count the graphs it captured and the seconds that took,
+    evicted graphs included; ``evictions`` the graphs it dropped for
+    room."""
 
     limit = MAX_DECODE_GRAPHS
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
+        self.captures = 0
+        self.capture_s = 0.0
 
     @torch.inference_mode()
     def __call__(self, params, cache, inputs):
@@ -394,16 +415,19 @@ class DecodeFn(_ParamsGraphCache):
             self.last = None
             return T.decode_step(params, self.cfg, cache, inputs)
         inputs = {k: torch.as_tensor(v) for k, v in inputs.items()}
-        self._keep_params(params)
-        # the graph holds ``params``, so their id stays theirs
-        key = (id(params), _spec(cache), _spec(inputs))
-        g = self._graph(key)
+        with REGISTRY.span("graphs.lookup"):
+            self._keep_params(params)
+            # the graph holds ``params``, so their id stays theirs
+            key = (id(params), _spec(cache), _spec(inputs))
+            g = self._graph(key)
         if g is None:
             self.last = None
             self._make_room()
             g = DecodeGraph(params, self.cfg, cache, inputs)
             first = g.capture(_capture_stream(dev))
             self.graphs[key] = self.last = g
+            self.captures += 1
+            self.capture_s += g.capture_s
             return first, g.cache
         self.last = g
         return g.replay(cache, inputs)
@@ -441,6 +465,7 @@ class Request:
     result_tokens: List[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
     t_submit: float = field(default_factory=time.monotonic)
+    t_wave: Optional[float] = None          # taken into a wave
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
 
@@ -459,13 +484,19 @@ class BatchServer:
     reference's server jits both: on the card, one CUDA graph a (batch,
     prompt) shape for the prefill, with the kernels inside it (the
     :data:`MAX_PREFILL_GRAPHS` most recently used kept), and one a batch
-    shape for the decode step.  ``waves`` records, for each wave,
-    its batch, prompt length, the seconds from the prefill call to the
-    first tokens on the host, the seconds of each decode step (each ends
-    when its tokens reach the host), and on the card, for the prefill
-    (``prefill_*``) and the decode step (``graph_*``), the seconds this
-    wave spent capturing a graph (0.0 where it replayed one made before)
-    and that graph's nodes and kernel nodes (None on the host)."""
+    shape for the decode step.  ``waves`` records, for each wave, its
+    start (``time.monotonic``), batch, prompt length, the seconds from
+    the prefill call to the first tokens on the host, the seconds of each
+    decode step (each ends when its tokens reach the host), and on the
+    card, for the prefill (``prefill_*``) and the decode step
+    (``graph_*``), the seconds this wave spent capturing graphs (0.0
+    where it replayed ones made before) and the last graph's nodes and
+    kernel nodes (None on the host).  Each request is stamped when its
+    wave takes it (``Request.t_wave``), so its time to the first token
+    splits into its wait in the queue (``t_wave - t_submit``) and its
+    wave's prefill (``t_first_token - t_wave``).  The server, its prefill
+    and its decode function record their spans into the process-wide
+    ``repro_torch.spans.REGISTRY``."""
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots: int = 4,
                  max_len: int = 512, impl: str = "kernel", device=None):
@@ -528,10 +559,17 @@ class BatchServer:
             torch.int32).cpu().numpy()
 
     def _serve_wave(self, wave: List[Request]) -> None:
-        cfg = self.cfg
+        with REGISTRY.span("serve.wave"):
+            self._wave(wave)
+
+    def _wave(self, wave: List[Request]) -> None:
+        cfg, span = self.cfg, REGISTRY.span
         if cfg.input_mode == "embeddings":
             # as the reference's server: requests carry token prompts
             raise NotImplementedError("vlm serving uses embedding frontend")
+        start = time.monotonic()
+        for r in wave:
+            r.t_wave = start
         s_max = len(wave[0].prompt)                   # bucketed: equal lens
         b = len(wave)
         toks = np.zeros((b, s_max), np.int64)
@@ -540,14 +578,15 @@ class BatchServer:
         if cfg.n_codebooks > 1:
             toks = np.repeat(toks[..., None], cfg.n_codebooks, axis=-1)
         inputs = {"tokens": torch.from_numpy(toks).to(self.device)}
-        prefill = self.prefill_fn
-        spent = prefill.capture_s
+        prefill, decode = self.prefill_fn, self.decode_fn
+        spent, decode_spent = prefill.capture_s, decode.capture_s
         t0 = time.monotonic()
         logits, cache = prefill(self.params, inputs)
         last = logits[:, -1] if cfg.n_codebooks == 1 else logits[:, -1, 0]
         next_tok = self._argmax(last)                 # waits for the card
         now = time.monotonic()
-        stats = {"batch": b, "prompt_len": s_max, "prefill_s": now - t0,
+        stats = {"start": start, "batch": b, "prompt_len": s_max,
+                 "prefill_s": now - t0,
                  "prefill_capture_s": None, "prefill_nodes": None,
                  "prefill_kernels": None,
                  "decode_s": [], "graph_capture_s": None,
@@ -564,7 +603,6 @@ class BatchServer:
             r.result_tokens.append(int(next_tok[i]))
         length = s_max
         n_steps = max(r.max_new_tokens for r in wave)
-        graphs = len(self.decode_fn.graphs)
         for _ in range(n_steps - 1):
             if length >= self.max_len and cfg.attn_kind != "none" and \
                     cfg.sliding_window is None:
@@ -572,26 +610,31 @@ class BatchServer:
                 # graph that is a device assert, so check here
                 raise ValueError(f"position {length} past max_len "
                                  f"{self.max_len}")
-            t = next_tok[:, None].astype(np.int64)
-            if cfg.n_codebooks > 1:
-                t = np.repeat(t[..., None], cfg.n_codebooks, axis=-1)
-            t0 = time.monotonic()
-            dinp = {"tokens": torch.from_numpy(t).to(self.device),
-                    "length": torch.tensor(length, dtype=torch.int32,
-                                           device=self.device)}
-            logits, cache = self._decode(self.params, cache, dinp)
-            lg = logits[:, 0] if cfg.n_codebooks == 1 else logits[:, 0, 0]
-            next_tok = self._argmax(lg)
-            stats["decode_s"].append(time.monotonic() - t0)
-            self.metrics["decoded_tokens"] += b
-            length += 1
-            for i, r in enumerate(wave):
-                if len(r.result_tokens) < r.max_new_tokens:
-                    r.result_tokens.append(int(next_tok[i]))
-        g = self.decode_fn.last
+            with span("serve.decode"):
+                with span("serve.decode.inputs"):
+                    t = next_tok[:, None].astype(np.int64)
+                    if cfg.n_codebooks > 1:
+                        t = np.repeat(t[..., None], cfg.n_codebooks, axis=-1)
+                    t0 = time.monotonic()
+                    dinp = {"tokens": torch.from_numpy(t).to(self.device),
+                            "length": torch.tensor(length, dtype=torch.int32,
+                                                   device=self.device)}
+                with span("serve.decode.call"):
+                    logits, cache = self._decode(self.params, cache, dinp)
+                with span("serve.decode.tokens"):
+                    lg = logits[:, 0] if cfg.n_codebooks == 1 else \
+                        logits[:, 0, 0]
+                    next_tok = self._argmax(lg)
+                stats["decode_s"].append(time.monotonic() - t0)
+                self.metrics["decoded_tokens"] += b
+                length += 1
+                with span("serve.decode.deliver"):
+                    for i, r in enumerate(wave):
+                        if len(r.result_tokens) < r.max_new_tokens:
+                            r.result_tokens.append(int(next_tok[i]))
+        g = decode.last
         if g is not None and n_steps > 1:
-            stats["graph_capture_s"] = (g.capture_s if len(
-                self.decode_fn.graphs) > graphs else 0.0)
+            stats["graph_capture_s"] = decode.capture_s - decode_spent
             stats["graph_nodes"], stats["graph_kernels"] = g.nodes, g.kernels
         now = time.monotonic()
         for r in wave:

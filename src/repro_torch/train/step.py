@@ -44,6 +44,7 @@ from repro_torch.optim import (clip_by_global_norm, cosine_schedule,
                                make_optimizer)
 from repro_torch.optim.compression import tree_compressed_psum
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.spans import REGISTRY
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,14 +327,17 @@ class TrainGraph:
         torch.cuda.empty_cache()
         self.graph, self.metrics, self.capture_s = _captured(
             stream, lambda: self._run(self.batch), pool)
-        self.nodes, self.kernels = graph_nodes(self.graph)
+        with REGISTRY.span("graphs.nodes"):
+            self.nodes, self.kernels = graph_nodes(self.graph)
         return first
 
     def replay(self, batch):
-        for k, v in batch.items():
-            if v is not self.batch[k]:
-                self.batch[k].copy_(v)
-        self.graph.replay()
+        with REGISTRY.span("graphs.load"):
+            for k, v in batch.items():
+                if v is not self.batch[k]:
+                    self.batch[k].copy_(v)
+        with REGISTRY.span("graphs.replay"):
+            self.graph.replay()
         return dict(self.metrics)
 
 
@@ -348,7 +352,10 @@ class TrainFn:
     and the seconds that took; ``params`` and ``state`` are its buffers
     on the card (None before its first call there).  ``refuse``, where
     given, says why this step cannot be captured: a call on the card
-    raises it before any launch."""
+    raises it before any launch.  A call is the span ``train.step`` of
+    ``repro_torch.spans.REGISTRY``, which holds ``train.load`` (the
+    params and state leaves flattened and checked) and the graph's
+    spans."""
 
     def __init__(self, eager, refuse: Optional[str] = None):
         self.eager = eager
@@ -384,6 +391,10 @@ class TrainFn:
                 o.copy_(n)
 
     def __call__(self, params, state, batch):
+        with REGISTRY.span("train.step"):
+            return self._step(params, state, batch)
+
+    def _step(self, params, state, batch):
         dev = next(iter(batch.values())).device
         if dev.type != "cuda":
             self.last = None
@@ -395,9 +406,11 @@ class TrainFn:
             raise TypeError("a train step's CUDA graph takes plain "
                             "tensors: DTensor steps run on meta only (the "
                             "dry-run)")
-        self._load(params, state)
-        key = (dev, _spec(batch))
-        g = self.graphs.get(key)
+        with REGISTRY.span("train.load"):
+            self._load(params, state)
+        with REGISTRY.span("graphs.lookup"):
+            key = (dev, _spec(batch))
+            g = self.graphs.get(key)
         if g is not None:
             self.last = g
             return self.params, self.state, g.replay(batch)

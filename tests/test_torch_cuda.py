@@ -940,6 +940,49 @@ def test_cuda_batch_server_graph_tokens_equal_eager(sm90_device):
     assert results["graph"] == results["eager"]
 
 
+def test_cuda_batch_server_counts_evictions_and_spans(sm90_device,
+                                                      monkeypatch):
+    """hymba at reduced width, five batch shapes through one server: the
+    fifth wave's decode and prefill captures each evict the least
+    recently used of the 4 graphs kept, and its ``graph_capture_s`` reads
+    that capture (the number of graphs kept stays at its limit, so it
+    cannot tell).  With spans on, the fifth wave warms and captures two
+    graphs, and each of its replayed decode steps looks up, loads and
+    replays its graph inside the decode function's call."""
+    from repro_torch.core.monitoring import REGISTRY as reg
+    from repro_torch.core.monitoring import spans_between
+    from repro_torch.serve.engine import MAX_DECODE_GRAPHS
+    cfg = get_arch("hymba-1.5b").reduced()
+    params = TT.init_params(cfg, device=sm90_device, seed=1)
+    monkeypatch.setattr(reg, "spans_on", True)
+    server = BatchServer(params, cfg, n_slots=5, max_len=24,
+                         device=sm90_device)
+    rng = np.random.default_rng(0)
+    for b in range(1, 6):
+        before = reg.snapshot()
+        for i in range(b):
+            server.submit(Request(request_id=f"b{b}-{i}", prompt=rng.integers(
+                1, cfg.vocab_size, 16).astype(np.int32), max_new_tokens=4))
+        server.run(max_requests=b, idle_timeout_s=0.5)
+    spans = spans_between(before, reg.snapshot())
+    waves = server.waves
+    assert [w["batch"] for w in waves] == [1, 2, 3, 4, 5]
+    assert all(w["graph_capture_s"] > 0 for w in waves)
+    assert all(w["prefill_capture_s"] > 0 for w in waves)
+    decode, prefill = server.decode_fn, server.prefill_fn
+    assert len(decode.graphs) == MAX_DECODE_GRAPHS
+    assert (decode.captures, decode.evictions) == (5, 1)
+    assert (prefill.captures, prefill.evictions) == (5, 1)
+    assert spans["graphs.warm"]["count"] == 2
+    assert spans["graphs.capture"]["count"] == 2
+    assert spans["graphs.instantiate"]["parents"] == {"graphs.capture": 2}
+    assert spans["serve.decode"]["count"] == 3
+    assert spans["graphs.lookup"]["parents"] == {"serve.wave": 1,
+                                                 "serve.decode.call": 3}
+    for name in ("graphs.load", "graphs.replay"):
+        assert spans[name]["parents"] == {"serve.decode.call": 2}, name
+
+
 def test_cuda_decode_capture_that_syncs_raises(sm90_device, monkeypatch):
     """A step that reads the position on the host (``_ring`` patched to
     call ``int``) runs eagerly but cannot be captured: the call raises,
