@@ -106,7 +106,9 @@ the flash and SSD kernels inside it, and decodes through
 against the eager ``prefill_with_cache`` on the same inputs
 (:class:`CheckedPrefill`: last-position logits and the whole cache) and
 every step against the eager ``decode_step`` on a copy of the same cache
-(:class:`CheckedDecode`), bit for bit, or within 1e-5 of their scale,
+at the decode function's ``impl`` (:class:`CheckedDecode`; the servers'
+``"kernel"`` runs the decode attention kernel in every GQA and hybrid
+layer), bit for bit, or within 1e-5 of their scale,
 tokens equal.  It reports each wave's eager and graph ms, the captures'
 ms and the graphs' nodes beside the eager prefill's op count on the host
 (:func:`prefill_ops`), and the kernel launches of each wave's replay and
@@ -235,6 +237,16 @@ SSD_CASES = [
 SSD_MAIN = [(4, 1024, 50, 64, 1, 16, 256), (4, 4096, 50, 64, 1, 16, 256)]
 # mamba2-130m served at full depth: its 4,096-token wave, d_state 128
 SSD_ZOO = [(4, 4096, 24, 64, 1, 128, 256)]
+# decode attention: (b, cache slots, kv heads, query heads a group,
+# head_dim, valid keys timed).  The benchmark's decode_heavy step
+# (hymba-1.5b: 16 slots over 1,280, its mean of 769 valid keys) and
+# mistral-nemo-12b's widest serving wave (4 slots over 2,064, D 128, a
+# group of 4); fp32 q, k, v from the weight products, bf16 caches, shared
+# rope tables, as the servers run them
+DECODE_ATTENTION_MAIN = [(16, 1280, 5, 5, 64, 769),
+                         (4, 2064, 8, 4, 128, 2049)]
+# the old row of the slot a step writes, far from any new k or v
+STALE_ROW = 40.0
 # tests/test_kernels.py:16-18 (fp32, bf16) and :123 (the SSD scan)
 TOL = {"fp32": 2e-5, "bf16": 5e-2}
 SSD_TOL = 1e-3
@@ -881,6 +893,161 @@ def time_attention_ssd(torch, fa, ssd, device):
     return rows
 
 
+def decode_attention_inputs(torch, case, device, seed):
+    """Card inputs at ``case``: unroped fp32 q, k and v, bf16 caches of
+    random keys and values, rope tables shared by the rows."""
+    b, s, hkv, rep, d = case[:5]
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa
+    ang = mk(1, d // 2) * 3.0
+    return (mk(b, hkv * rep, d), mk(b, hkv, d), mk(b, hkv, d),
+            mk(b, s, hkv, d).bfloat16(), mk(b, s, hkv, d).bfloat16(),
+            torch.cos(ang), torch.sin(ang))
+
+
+def decode_attention_tol(want):
+    """Kernel against plain: the same casts, the sums in another order, so
+    the bf16 output may round the other way: one rounding, 2^-7 of the
+    value, plus 2^-8 of the largest value for a softmax weight that rounds
+    the other way to bf16."""
+    w = want.float().abs()
+    return 2.0 ** -7 * w + 2.0 ** -8 * w.max()
+
+
+def check_decode_attention(torch, tda, device):
+    """The decode attention kernel (``tda.launch``) against its plain
+    version on the same card inputs at the main path's shapes
+    (``DECODE_ATTENTION_MAIN``), as a full cache and as a ring, at one
+    valid key, the timed position, a full cache and (a ring) two
+    positions past its wrap.  Before each call the slot the step writes
+    holds ``±STALE_ROW``, so a read of the old row shows.  The caches
+    after the call bit for bit, the output in the plain version's type
+    and within :func:`decode_attention_tol`; raises on a miss.  Returns
+    the largest error."""
+    worst = 0.0
+    for case in DECODE_ATTENTION_MAIN:
+        b, s, hkv, rep, d, timed = case
+        q, k, v, kc, vc, cos, sin = decode_attention_inputs(
+            torch, case, device, sum(case))
+        for ring in (False, True):
+            positions = [0, timed - 1, s - 1] + (
+                [s + 7, 3 * s + s // 3] if ring else [])
+            errs, of_scale = [], []
+            for n in positions:
+                widx = tda.ring_slot(n, s, ring)[0]
+                base_k, base_v = kc.clone(), vc.clone()
+                base_k[:, widx], base_v[:, widx] = STALE_ROW, -STALE_ROW
+                kk, vk = base_k.clone(), base_v.clone()
+                length = torch.tensor(n, dtype=torch.int32, device=device)
+                got = tda.launch(q, k, v, kk, vk, length, cos, sin,
+                                 ring=ring)
+                want = tda.plain(q, k, v, base_k, base_v, n, cos, sin,
+                                 ring=ring)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                if (got.shape != want.shape or got.dtype != want.dtype
+                        or not torch.equal(kk, base_k)
+                        or not torch.equal(vk, base_v)
+                        or bool((diff > decode_attention_tol(want)).any())):
+                    raise AssertionError(
+                        f"decode attention kernel vs plain at {case} ring "
+                        f"{ring} position {n}: max error {float(diff.max())}"
+                        f" of {float(want.float().abs().max())}, caches "
+                        f"equal {torch.equal(kk, base_k)} "
+                        f"{torch.equal(vk, base_v)}")
+                errs.append(float(diff.max()))
+                of_scale.append(errs[-1] / float(want.float().abs().max()))
+                del base_k, base_v, kk, vk, got, want, diff
+            worst = max(worst, max(errs))
+            emit("check_decode_attention", case=list(case), ring=ring,
+                 positions=positions, max_abs_err=errs,
+                 err_of_scale=of_scale, stale_row=STALE_ROW)
+        del q, k, v, kc, vc, cos, sin
+    return worst
+
+
+def graph_ms(torch, fn, calls=20, replays=10):
+    """One call of ``fn``'s device time without its host launch: ``calls``
+    calls captured in a CUDA graph, replayed ``replays`` times between
+    CUDA events (:func:`time_ms`), divided by ``calls``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(torch, graph.replay, replays) / calls
+    del graph
+    return ms
+
+
+def decode_attention_bound_ms(case):
+    """Bytes: the valid keys' K and V rows of the bf16 cache read once
+    (the new row written in place of one), the fp32 q, k, v and rope
+    tables read and the fp32 output written once.  Operations: 4·D flops
+    (q·k and p·v) for each (query head, valid key) pair, at the fp32
+    peak (the kernel's sums are CUDA-core FMAs)."""
+    b, s, hkv, rep, d, valid = case
+    h = hkv * rep
+    nbytes = (ELEM_BYTES["bf16"] * 2 * b * valid * hkv * d
+              + ELEM_BYTES["fp32"] * (2 * b * h * d + 2 * b * hkv * d + d))
+    flops = 4.0 * d * b * h * valid
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["fp32"]
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def time_decode_attention(torch, tda, device):
+    """Kernel, plain and library times at ``DECODE_ATTENTION_MAIN``: the
+    kernel and the library call by :func:`graph_ms` (a launch takes
+    longer on the host than the kernel on the card), the plain version
+    by :func:`time_ms`.  The library is the fastest SDPA backend with
+    one query over the valid keys of the bf16 cache, bf16 q, GQA: no
+    rope, no slot write, the layouts made outside the call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rows = []
+    for case in DECODE_ATTENTION_MAIN:
+        b, s, hkv, rep, d, valid = case
+        q, k, v, kc, vc, cos, sin = decode_attention_inputs(
+            torch, case, device, 17)
+        length = torch.tensor(valid - 1, dtype=torch.int32, device=device)
+        run = lambda: tda.launch(q, k, v, kc, vc, length, cos,  # noqa
+                                 sin, ring=False)
+        kernel_ms = graph_ms(torch, run)
+        plain_ms = time_ms(torch, lambda: tda.plain(
+            q, k, v, kc, vc, valid - 1, cos, sin, ring=False), 1)
+        qt = q.bfloat16()[:, :, None]
+        kt, vt = (c[:, :valid].transpose(1, 2).contiguous()
+                  for c in (kc, vc))
+        times = {}
+        for backend in (SDPBackend.CUDNN_ATTENTION,
+                        SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION):
+            fn = lambda: F.scaled_dot_product_attention(  # noqa
+                qt, kt, vt, enable_gqa=True)
+            with sdpa_kernel(backend):
+                try:
+                    fn()
+                    torch.cuda.synchronize()
+                except RuntimeError:        # the backend refuses the inputs
+                    continue
+                times[backend.name] = graph_ms(torch, fn)
+        best = min(times, key=times.get)
+        row = {"kernel": "decode_attention", "case": list(case),
+               "dtype": "bf16 cache, fp32 q", "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": times[best],
+               "library_backend": best, "library_ms_by_backend": times}
+        row["bound_ms"], row["bound_by"] = decode_attention_bound_ms(case)
+        emit("timing", **row)
+        rows.append(row)
+        del q, k, v, kc, vc, cos, sin, qt, kt, vt
+    return rows
+
+
 def _top2(torch, logits, vocab):
     """The two largest logits of each row, on the host."""
     return torch.topk(logits[..., :vocab].float(), 2, dim=-1).values.cpu()
@@ -898,13 +1065,17 @@ class CheckedDecode:
     returned), the graph's and the eager step's ms (host clock between
     synchronisations; the step that captured, which also ran the warm-up
     step, is counted in ``capture_ms`` and not in ``graph_ms``), the
-    graph's nodes and kernel nodes, and the steps that agreed bit for
-    bit."""
+    graph's nodes and kernel nodes, the decode attention launches its
+    kernel nodes hold and those the wrapper counted at its capture, and
+    the steps that agreed bit for bit.  The eager checks' own decode
+    attention launches are kept apart in ``check_launches``."""
 
     def __init__(self, torch, T, cfg, decode):
         self.torch, self.T, self.cfg, self.decode = torch, T, cfg, decode
         self.waves = []
         self._cache = None
+        self.counter = kernel_counters()["decode_attention"]
+        self.check_launches = 0
 
     @property
     def graphs(self):
@@ -932,10 +1103,13 @@ class CheckedDecode:
         logits, out = self.decode(params, cache, inputs)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        before = self.counter.count
         with torch.inference_mode():
-            want, _ = self.T.decode_step(params, self.cfg, ref, inputs)
+            want, _ = self.T.decode_step(params, self.cfg, ref, inputs,
+                                         impl=self.decode.impl)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        self.check_launches += self.counter.count - before
         g = self.decode.last
         if g is None:
             raise AssertionError("a decode step on the card went through "
@@ -946,6 +1120,8 @@ class CheckedDecode:
             w["graph_ms"].append((t1 - t0) * 1e3)
         w["eager_ms"].append((t2 - t1) * 1e3)
         w["nodes"], w["kernels"] = g.nodes, g.kernels
+        w["launches"] = dict(g.launches).get(self.counter, 0)
+        w["counted"] = dict(g.counted).get(self.counter, 0)
         w["steps"] += 1
         if torch.equal(logits, want):
             w["bitwise"] += 1
@@ -974,7 +1150,9 @@ def graph_rows(waves, read_ms=None):
                                  if w["graph_ms"] else None),
                        eager_ms=statistics.mean(w["eager_ms"]),
                        capture_ms=w["capture_ms"], nodes=w["nodes"],
-                       kernel_nodes=w["kernels"], steps=w["steps"],
+                       kernel_nodes=w["kernels"],
+                       decode_attention_nodes=w["launches"],
+                       steps=w["steps"],
                        bitwise_steps=w["bitwise"],
                        max_rel_err=w["max_rel_err"])
         if read_ms:
@@ -988,9 +1166,10 @@ def graph_rows(waves, read_ms=None):
 
 def kernel_counters():
     """The launch counters of the kernels on the serving path, by name."""
+    from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
-    return {**fa.LAUNCHES, **ssd.LAUNCHES}
+    return {**fa.LAUNCHES, **ssd.LAUNCHES, **tda.LAUNCHES}
 
 
 class CheckedPrefill:
@@ -1187,7 +1366,8 @@ def trace_decode(torch, T, serve, params, cfg, device, prompt_len):
     prefilled (bf16 cache) by its prefill graph's first replay, the decode
     graph captured, then ``TRACE_STEPS`` eager steps (``decode_step`` on
     a copy of the cache) and ``TRACE_STEPS`` graph replays under
-    ``torch.profiler`` (:func:`traced`)."""
+    ``torch.profiler`` (:func:`traced`), both at the server's
+    ``impl="kernel"``."""
     from torch.profiler import ProfilerActivity, profile, record_function
     rng = np.random.default_rng(SEED + 9)
     n = prompt_len + TRACE_STEPS + 2
@@ -1196,7 +1376,7 @@ def trace_decode(torch, T, serve, params, cfg, device, prompt_len):
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, shape)).to(
         device)
     prefill = serve.make_prefill_fn(cfg, n, impl="kernel")
-    decode = serve.make_decode_fn(cfg)
+    decode = serve.make_decode_fn(cfg, "kernel")
 
     def step_inputs(i):
         return {"tokens": toks[:, prompt_len + i:prompt_len + i + 1],
@@ -1209,11 +1389,11 @@ def trace_decode(torch, T, serve, params, cfg, device, prompt_len):
         _, cache = prefill(params, first)                     # replays
         _, cache = decode(params, cache, step_inputs(0))      # captures
         eager = {k: v.clone() for k, v in cache.items()}
-        T.decode_step(params, cfg, eager, step_inputs(1))
+        T.decode_step(params, cfg, eager, step_inputs(1), impl="kernel")
         _, cache = decode(params, cache, step_inputs(1))
         torch.cuda.synchronize()
         runs = {"decode_eager": lambda i: T.decode_step(
-                    params, cfg, eager, step_inputs(i)),
+                    params, cfg, eager, step_inputs(i), impl="kernel"),
                 "decode_graph": lambda i: decode(params, cache,
                                                  step_inputs(i))}
         with profile(activities=[ProfilerActivity.CPU,
@@ -1369,6 +1549,28 @@ def check_launches(checked, counters, layers):
     return launches
 
 
+def check_decode_launches(checked, layers):
+    """A checked run's decode attention launches on the served path (the
+    count less the eager checks' own, :class:`CheckedDecode`): every step
+    launches the kernel once a layer (``layers``, 0 for an arch without
+    GQA or hybrid attention), a replay from its graph's kernel nodes and
+    a capturing step in its eager warm-up.  Raises otherwise, and where a
+    wave's graph does not hold ``layers`` of them, read from its kernel
+    nodes' names and counted by the wrapper at its capture.  Returns the
+    served launches."""
+    served = checked.counter.count - checked.check_launches
+    steps = sum(w["steps"] for w in checked.waves)
+    if served != steps * layers:
+        raise AssertionError(f"decode attention launched {served} times in "
+                             f"{steps} steps, not {layers} a step")
+    for w in checked.waves:
+        if (w["launches"], w["counted"]) != (layers, layers):
+            raise AssertionError(f"a decode graph holds {w['launches']} "
+                                 f"decode attention launches (counted "
+                                 f"{w['counted']}), not {layers}")
+    return served
+
+
 def serve_hymba(torch, serve, T, fa, ssd, device):
     """hymba-1.5b at full width through ``BatchServer`` on the card, with
     the kernel launch counts set to 0 just before and read just after."""
@@ -1389,12 +1591,14 @@ def serve_hymba(torch, serve, T, fa, ssd, device):
     counters = {"flash_attention": fa.LAUNCHES["flash_attention"],
                 "ssd_chunk_scan": ssd.LAUNCHES["ssd_chunk_scan"]}
     torch.cuda.reset_peak_memory_stats(device)
-    for c in counters.values():
+    for c in kernel_counters().values():
         c.reset()
     server, done, captured, wall = run_server(torch, serve, params, cfg,
                                               device, "kernel", prompts)
     launches = check_launches(server.checked_prefill, counters,
                               dict.fromkeys(counters, cfg.n_layers))
+    launches["decode_attention"] = check_decode_launches(server.checked,
+                                                         cfg.n_layers)
     read_ms = (decode_weight_bytes(cfg, params, SERVE_SLOTS)
                / HBM_BYTES_PER_S * 1e3)
     stats = serve_stats(torch, server, done,
@@ -1424,18 +1628,20 @@ def serve_hymba(torch, serve, T, fa, ssd, device):
 def serve_vs_plain(torch, serve, fa, ssd, params, cfg, prompts, done,
                    captured, device):
     """The same waves through the same server with ``impl="dense"`` (no
-    kernel): prefill logits and captured caches within 2e-3 (a bf16 k/v
-    entry also within one bf16 rounding, 2^-7 of its size, since the fp32
-    values it rounds differ slightly); greedy tokens equal up to the first
-    place where the plain run's top two logits lie within 1e-4."""
-    f0 = fa.LAUNCHES["flash_attention"].count
-    s0 = ssd.LAUNCHES["ssd_chunk_scan"].count
+    kernel: no flash, SSD or decode attention launch): prefill logits and
+    captured caches within 2e-3 (a bf16 k/v entry also within one bf16
+    rounding, 2^-7 of its size, since the fp32 values it rounds differ
+    slightly); greedy tokens equal up to the first place where the plain
+    run's top two logits lie within 1e-4."""
+    counters = kernel_counters()
+    before = {name: c.count for name, c in counters.items()}
     _, done_p, captured_p, wall = run_server(torch, serve, params, cfg,
                                              device, "dense", prompts,
                                              check=False)
-    if (fa.LAUNCHES["flash_attention"].count != f0
-            or ssd.LAUNCHES["ssd_chunk_scan"].count != s0):
-        raise AssertionError("the dense path launched a kernel")
+    after = {name: c.count for name, c in counters.items()}
+    if after != before:
+        raise AssertionError(f"the dense path launched a kernel: {before} "
+                             f"-> {after}")
     errs = hold_waves(torch, captured, captured_p)
     compared, near_ties = compare_tokens(done, done_p, captured_p,
                                          lambda top1: NEAR_TIE)
@@ -3361,8 +3567,8 @@ def lm_example(torch, fa, device):
     make_decode, made = engine.make_decode_fn, []
     make_prefill, made_prefill = engine.make_prefill_fn, []
 
-    def checked_make(cfg):
-        made.append(CheckedDecode(torch, T, cfg, make_decode(cfg)))
+    def checked_make(cfg, impl="dense"):
+        made.append(CheckedDecode(torch, T, cfg, make_decode(cfg, impl)))
         return made[-1]
 
     def checked_make_prefill(cfg, max_len, **kw):
@@ -3583,13 +3789,14 @@ def vlm_mrope(torch, T, fa, device):
     ``make_prefill_fn(impl="kernel")``'s graph (the embeds + M-RoPE key;
     bf16 cache; held against the eager prefill, :class:`CheckedPrefill`)
     and 16 decode steps with (3, B, 1) positions through
-    ``make_decode_fn``'s graph, each held against the eager step
+    ``make_decode_fn(impl="kernel")``'s graph (the decode attention
+    kernel with per-row M-RoPE tables), each held against the eager step
     (:class:`CheckedDecode`); the flash launch count set to 0 just before
     and read just after (exactly one a layer: the kernel run replays the
     prefill graph the warm-up captured).  The same run at
-    ``impl="dense"`` (its own prefill graph): prefill and decode logits
-    within 2e-3 of the largest magnitude; both runs' greedy tokens
-    reported.  All three runs (warm-up, kernel, dense) replay the one
+    ``impl="dense"`` (its own prefill and decode graphs): prefill and
+    decode logits within 2e-3 of the largest magnitude; both runs' greedy
+    tokens reported.  The warm-up and the kernel run replay the one kernel
     decode graph the warm-up captured."""
     import repro_torch.serve as serve
     from repro_torch.configs import get_arch
@@ -3606,7 +3813,8 @@ def vlm_mrope(torch, T, fa, device):
     positions = torch.from_numpy(vlm_positions(VLM_TEXT + steps, b)).to(
         device)
     vocab = cfg.vocab_size
-    decode = CheckedDecode(torch, T, cfg, serve.make_decode_fn(cfg))
+    decodes = {impl: CheckedDecode(torch, T, cfg, serve.make_decode_fn(
+        cfg, impl)) for impl in ("kernel", "dense")}
     prefills = {impl: CheckedPrefill(torch, serve.make_prefill_fn(
         cfg, s + steps, impl=impl)) for impl in ("kernel", "dense")}
 
@@ -3621,7 +3829,7 @@ def vlm_mrope(torch, T, fa, device):
             rows, decode_s = [logits[:, -1].float()], []
             for i in range(steps):
                 t = time.perf_counter()
-                out, cache = decode(params, cache, {
+                out, cache = decodes[impl](params, cache, {
                     "embeds": embeds[:, s + i:s + i + 1],
                     "positions": positions[:, :, s + i:s + i + 1],
                     "length": torch.tensor(s + i, dtype=torch.int32,
@@ -3662,8 +3870,9 @@ def vlm_mrope(torch, T, fa, device):
                                  f"{diff} > {MODEL_TOL} × {scale}")
     wall = prefill_s + sum(decode_s)
     read_ms = decode_weight_bytes(cfg, params, b) / HBM_BYTES_PER_S * 1e3
-    graph = graph_rows(decode.waves, read_ms)
-    del decode
+    graph = graph_rows(decodes["kernel"].waves, read_ms)
+    graph_dense = graph_rows(decodes["dense"].waves, read_ms)
+    del decodes
     emit("vlm_mrope", arch=VLM_ARCH, layers=cfg.n_layers,
          d_model=cfg.d_model, params=T.param_count(params), init_s=init_s,
          batch=b, seq=s, image_grid=[VLM_GRID, VLM_GRID], text=VLM_TEXT,
@@ -3678,7 +3887,8 @@ def vlm_mrope(torch, T, fa, device):
          decode_ms_per_step=graph[1]["graph_ms"],
          eager_decode_ms_per_step=graph[1]["eager_ms"],
          decode_weight_read_ms=read_ms,
-         decode_graph=graph, decode_graph_runs=["warm-up", "kernel", "dense"],
+         decode_graph=graph, decode_graph_runs=["warm-up", "kernel"],
+         decode_graph_dense=graph_dense,
          max_memory_allocated_gb=peak_gb, kernel_vs_dense=errs,
          tol_of_scale=MODEL_TOL, greedy_tokens=tokens.tolist(),
          greedy_tokens_dense=plain_tokens.tolist(),
@@ -3981,7 +4191,7 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
     if cfg.moe is not None:
         L.moe_route, L.moe_forward = kept_route, kept_forward
     try:
-        for c in counters.values():
+        for c in kernel_counters().values():
             c.reset()
         server, done, captured, wall = run_server(
             torch, serve, params, cfg, device, "kernel", prompts,
@@ -3993,7 +4203,9 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
     launches = check_launches(server.checked_prefill, counters,
                               {name: layers * int(on)
                                for name, on in runs.items()})
-    served = {name: c.count for name, c in counters.items()}
+    launches["decode_attention"] = check_decode_launches(
+        server.checked, layers * int(runs["flash_attention"]))
+    served = {name: c.count for name, c in kernel_counters().items()}
     stats = serve_stats(torch, server, done,
                         check_served(done, len(prompts), cfg,
                                      ZOO_NEW_TOKENS), wall, device)
@@ -4012,7 +4224,7 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
         max_len=max_len, new_tokens=ZOO_NEW_TOKENS, check=False)
     peaks["dense"] = torch.cuda.max_memory_allocated(device)
     reserved["dense"] = torch.cuda.max_memory_reserved(device)
-    if {name: c.count for name, c in counters.items()} != served:
+    if {name: c.count for name, c in kernel_counters().items()} != served:
         raise AssertionError(f"{arch}: the dense path launched a kernel")
     errs = hold_waves(torch, captured, captured_p, hold=cfg.moe is None)
     compared, near_ties = compare_tokens(
@@ -4090,6 +4302,7 @@ def main() -> int:
     import repro_torch.ml as ml
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kmeans as kk
     from repro_torch.kernels import ref as tref
@@ -4140,6 +4353,8 @@ def main() -> int:
     worst["flash_attention"] = check_flash(torch, fa, tref, device)
     worst["ssd_chunk_scan"] = check_ssd(torch, ssd, tref, device)
     timings += time_attention_ssd(torch, fa, ssd, device)
+    worst["decode_attention"] = check_decode_attention(torch, tda, device)
+    timings += time_decode_attention(torch, tda, device)
     params, cfg, prompts, done, captured, serve_launches = serve_hymba(
         torch, serve, T, fa, ssd, device)
     launches.update(serve_launches)
@@ -4229,6 +4444,18 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "library_backend": main_row.get("library_backend")})
+    main_row = next(r for r in timings if r["kernel"] == "decode_attention"
+                    and tuple(r["case"]) == DECODE_ATTENTION_MAIN[0])
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None, "fuses": "src/repro/models/layers.py:257",
+        "launches": launches["decode_attention"],
+        "max_abs_err": worst["decode_attention"],
+        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "library_backend": main_row["library_backend"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,13 @@ Where the reference picks interpret mode from the default backend, the
 port dispatches on the device of the tensors it is given: a CPU tensor
 takes the kernel's plain version, a CUDA tensor launches the Hopper kernel
 on an sm_90 card or raises (:mod:`repro_torch.kernels.kmeans`,
-:mod:`~repro_torch.kernels.flash_attention`, :mod:`~repro_torch.kernels.ssd`).
+:mod:`~repro_torch.kernels.flash_attention`, :mod:`~repro_torch.kernels.ssd`,
+:mod:`~repro_torch.kernels.decode_attention`).
 """
 from __future__ import annotations
 
+from repro_torch.kernels.decode_attention import \
+    decode_attention as _decode_attention
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.kmeans import DEFAULT_BLOCK_N
 from repro_torch.kernels.kmeans import kmeans_assign as _kmeans_assign
@@ -19,6 +22,15 @@ from repro_torch.kernels.ssd import ssd_chunk_scan as _ssd
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """q (B,Sq,H,D); k/v (B,Sk,Hkv,D) -> (B,Sq,H,D)."""
     return _flash(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, k_cache, v_cache, length, cos, sin, *,
+                     ring: bool):
+    """One decode step's attention core: q (B,H,D), k/v (B,Hkv,D) unroped,
+    caches (B,S,Hkv,D) written at the position's slot in place ->
+    (B,1,H·D)."""
+    return _decode_attention(q, k, v, k_cache, v_cache, length, cos, sin,
+                             ring=ring)
 
 
 def kmeans_assign(points, centroids, *, precision: str = "fp32",

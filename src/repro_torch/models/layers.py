@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.decode_attention import ring_slot
 from repro_torch.kernels import ssd as kssd
 
 IMPLS = ("dense", "chunked", "kernel")
@@ -505,17 +506,34 @@ def gqa_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
     return merge_heads(o, b, s, h * hd) @ p["wo"], (k, v)
 
 
-def gqa_decode(p, x, cache_k, cache_v, write_idx, valid_len, cos, sin,
-               cfg: ArchConfig):
-    """x (B,1,D).  Writes the new kv at ``write_idx`` (== position, or
+def gqa_decode(p, x, cache_k, cache_v, length, cos, sin, cfg: ArchConfig,
+               *, impl="dense"):
+    """x (B,1,D) at position ``length`` (an int, or a 0-d tensor on the
+    device).  Writes the new kv at the position's slot (the position, or
     position % window for ring buffers) into the caches **in place** and
-    attends over ``valid_len`` entries (ints, or 0-d tensors on the
-    device).  Returns (out, cache_k, cache_v)."""
+    attends over the valid entries (:func:`~repro_torch.kernels.
+    decode_attention.ring_slot`).  Returns (out, cache_k, cache_v).
+
+    ``impl="dense"`` runs the rope, the slot writes and the attention op
+    by op; ``impl="kernel"`` runs them as one
+    :func:`repro_torch.kernels.ops.decode_attention` call, which derives
+    the slot and the valid keys from the position itself; a ``DTensor``
+    raises there."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = heads(x @ p["wq"], b, 1, h, hd)
     k = heads(x @ p["wk"], b, 1, hkv, hd, split=False)
     v = heads(x @ p["wv"], b, 1, hkv, hd, split=False)
+    ring = cfg.sliding_window is not None
+    if impl == "kernel":
+        o = kops.decode_attention(q[:, 0], k[:, 0], v[:, 0], cache_k,
+                                  cache_v, length, cos, sin, ring=ring)
+        o = o.to(torch.promote_types(cache_v.dtype, p["wo"].dtype))
+        return o @ p["wo"], cache_k, cache_v
+    if impl != "dense":
+        raise ValueError(f"decode takes impl 'dense' or 'kernel', got "
+                         f"{impl!r}")
+    write_idx, valid_len = ring_slot(length, cache_k.shape[1], ring)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -1101,13 +1119,13 @@ def hybrid_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
     return y, kv
 
 
-def hybrid_decode(p, x, cache, write_idx, valid_len, cos, sin,
-                  cfg: ArchConfig):
+def hybrid_decode(p, x, cache, length, cos, sin, cfg: ArchConfig, *,
+                  impl="dense"):
     """``cache`` holds this layer's k, v (updated in place), ssm and conv;
     returns (y, {"k", "v", "ssm", "conv"}) with the new ssm and conv
-    states."""
-    a, ck, cv = gqa_decode(p["attn"], x, cache["k"], cache["v"], write_idx,
-                           valid_len, cos, sin, cfg)
+    states.  ``length`` and ``impl`` as :func:`gqa_decode` takes them."""
+    a, ck, cv = gqa_decode(p["attn"], x, cache["k"], cache["v"], length,
+                           cos, sin, cfg, impl=impl)
     m, st, conv = ssm_decode(p["ssm"], x, cache["ssm"], cache["conv"], cfg)
     y = 0.5 * (rms_norm(a, p["attn_norm"], cfg.norm_eps)
                + rms_norm(m, p["ssm_norm_out"], cfg.norm_eps))

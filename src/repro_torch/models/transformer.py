@@ -535,36 +535,28 @@ def _store(cache, name: str, layer: int, value) -> None:
     cache[name][layer].copy_(value)
 
 
-def _ring(cfg: ArchConfig, size: int, length):
-    """(write_idx, valid_len) for full or ring-buffer caches: on the device
-    for a tensor ``length``, in Python for an int."""
-    if cfg.sliding_window is not None:
-        if torch.is_tensor(length):
-            return length % size, torch.clamp_max(length + 1, size)
-        return length % size, min(length + 1, size)
-    return length, length + 1
-
-
 def block_decode(lp, x, cache, layer: int, length, cos, sin,
-                 cfg: ArchConfig, rules: Optional[ShardRules] = None):
+                 cfg: ArchConfig, rules: Optional[ShardRules] = None, *,
+                 impl: str = "dense"):
     """One block of one decode step; updates ``cache`` (the stacked dict)
     at ``layer`` in place.  ``length`` is an int or a 0-d tensor on the
-    cache's device.  Returns x."""
+    cache's device.  ``impl="kernel"`` runs GQA and hybrid attention
+    through the fused decode attention; MLA and SSM blocks ignore it.
+    Returns x."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "gqa":
-        widx, valid = _ring(cfg, cache["k"].shape[2], length)
         a, _, _ = L.gqa_decode(lp["attn"], h, cache["k"][layer],
-                               cache["v"][layer], widx, valid, cos, sin, cfg)
+                               cache["v"][layer], length, cos, sin, cfg,
+                               impl=impl)
         x = x + a
     elif cfg.attn_kind == "mla":
         a, _, _ = L.mla_decode(lp["attn"], h, cache["ckv"][layer],
                                cache["krope"][layer], length, cos, sin, cfg)
         x = x + a
     elif cfg.attn_kind == "hybrid":
-        widx, valid = _ring(cfg, cache["k"].shape[2], length)
         sub = {name: cache[name][layer] for name in ("k", "v", "ssm", "conv")}
-        a, sub = L.hybrid_decode(lp["mixer"], h, sub, widx, valid, cos, sin,
-                                 cfg)
+        a, sub = L.hybrid_decode(lp["mixer"], h, sub, length, cos, sin, cfg,
+                                 impl=impl)
         _store(cache, "ssm", layer, sub["ssm"])
         _store(cache, "conv", layer, sub["conv"])
         x = x + a
@@ -581,9 +573,12 @@ def block_decode(lp, x, cache, layer: int, length, cos, sin,
     return _c(rules, _ffn(lp, x, cfg, rules)[0], *_act_spec(rules))
 
 
+DECODE_IMPLS = ("dense", "kernel")
+
+
 @_dtensor_scoped
 def decode_step(params, cfg: ArchConfig, cache, inputs, *,
-                rules: Optional[ShardRules] = None):
+                rules: Optional[ShardRules] = None, impl: str = "dense"):
     """One serve step: new token at position ``inputs['length']``.
 
     inputs: tokens (B,1) or (B,1,K) / embeds (B,1,D); positions (3,B,1)
@@ -591,8 +586,14 @@ def decode_step(params, cfg: ArchConfig, cache, inputs, *,
     reference's form) or a host int (the dry-run's).  With a tensor
     nothing reads the position on the host, so every position runs the
     same ops on the same shapes: the step a CUDA graph can capture
-    (``serve.make_decode_fn``).  Returns (logits, cache) — the same cache
-    dict, updated in place."""
+    (``serve.make_decode_fn``).  ``impl="kernel"`` runs each GQA or
+    hybrid layer's attention core (rope, slot writes, attention over the
+    valid keys) as one ``kernels.ops.decode_attention`` call: its plain
+    version on a CPU cache, the kernel on the card; ``"dense"`` runs it op
+    by op, and is what a ``DTensor`` cache takes.  Returns (logits,
+    cache) — the same cache dict, updated in place."""
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"impl must be one of {DECODE_IMPLS}, got {impl!r}")
     # the constraint is the identity on a plain tensor; a DTensor lookup
     # in a vocab-sharded table is reduced here, as forward's is
     x = _c(rules, _embed_inputs(params, cfg, inputs), *_act_spec(rules))
@@ -610,6 +611,7 @@ def decode_step(params, cfg: ArchConfig, cache, inputs, *,
     else:
         cos = sin = None
     for i, lp in enumerate(params["blocks"]):
-        x = block_decode(lp, x, cache, i, length, cos, sin, cfg, rules)
+        x = block_decode(lp, x, cache, i, length, cos, sin, cfg, rules,
+                         impl=impl)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, x, rules), cache

@@ -12,15 +12,19 @@ requests" driver: requests queue up, are bucketed into waves of equal
 prompt length, prefilled together, and decoded in lockstep, one token for
 every request of the wave each step, greedy over the real vocabulary.
 
-Two routing points differ from the reference, both within what it offers,
-and together they put both Hopper kernels on the serving path:
+Three routing points differ from the reference, all within what it
+offers, and together they put the Hopper kernels on the serving path:
 
 * :class:`BatchServer` passes an ``impl`` to its prefill, ``"kernel"`` by
   default (the reference's ``make_prefill_fn`` takes ``impl``, but its
   server fixes ``"dense"``), so attention runs the flash kernel;
 * :func:`_block_prefill` passes ``impl`` on to ``ssm_forward`` (the
   reference leaves the SSM on its ``"jnp"`` scan), so ``"kernel"`` runs
-  the SSD chunk kernel.  Both scans compute the same function.
+  the SSD chunk kernel.  Both scans compute the same function;
+* :class:`BatchServer` passes ``"kernel"`` on to its decode step too, so
+  each GQA or hybrid layer's attention core runs the decode attention
+  kernel (the same casts as the op-by-op step; only its sums run in
+  another order).
 
 On a CPU tensor ``"kernel"`` takes the kernels' plain versions.
 
@@ -54,8 +58,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.graphs import (_capture_stream, _captured, _counted_capture,
-                                _GraphCache, _spec, _warmed, graph_nodes)
+from repro_torch.graphs import (_capture_stream, _counted_capture,
+                                _GraphCache, _spec, _warmed)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.spans import REGISTRY
@@ -346,12 +350,17 @@ class DecodeGraph:
     call's cache becomes the static cache; a later call with another cache
     (a new wave from the prefill) copies it in once.  A step that syncs
     with the host, allocates what a graph cannot, or widens a cache entry
-    raises here: nothing falls back to eager decoding on the card."""
+    raises here: nothing falls back to eager decoding on the card.
 
-    def __init__(self, params, cfg: ArchConfig, cache, inputs):
+    As :class:`PrefillGraph`'s, its ``launches`` hold the kernel nodes of
+    each counted kernel (``decode_attention`` with ``impl="kernel"``),
+    which every replay adds to the kernel's counter."""
+
+    def __init__(self, params, cfg: ArchConfig, cache, inputs, impl: str):
         dev = next(iter(cache.values())).device
         self.params = params            # the graph reads them where they lie
         self.cfg = cfg
+        self.impl = impl
         self.cache = dict(cache)
         self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
                        for k, v in inputs.items()}
@@ -362,18 +371,21 @@ class DecodeGraph:
         Returns the first step's logits."""
         cache = dict(self.cache)
         first, _ = _warmed(stream, lambda: T.decode_step(
-            self.params, self.cfg, self.cache, self.inputs))
+            self.params, self.cfg, self.cache, self.inputs, impl=self.impl))
         for name, t in cache.items():
             if self.cache[name] is not t:
                 raise RuntimeError(
                     f"the decode step widened cache {name!r} from {t.dtype} "
                     f"to {self.cache[name].dtype}: a captured step needs the "
                     f"cache in the types the prefill gives")
-        self.graph, (self.logits, _), self.capture_s = _captured(
+        cap = _counted_capture(
             stream, lambda: T.decode_step(self.params, self.cfg, self.cache,
-                                          self.inputs))
-        with REGISTRY.span("graphs.nodes"):
-            self.nodes, self.kernels = graph_nodes(self.graph)
+                                          self.inputs, impl=self.impl),
+            what="decode graph")
+        self.graph, (self.logits, _) = cap.graph, cap.out
+        self.capture_s, self.nodes, self.kernels = (cap.seconds, cap.nodes,
+                                                    cap.kernels)
+        self.launches, self.counted = cap.launches, cap.counted
         return first
 
     def _load(self, cache, inputs) -> None:
@@ -388,6 +400,8 @@ class DecodeGraph:
             self._load(cache, inputs)
         with REGISTRY.span("graphs.replay"):
             self.graph.replay()
+        for c, n in self.launches:
+            c.add(n)
         return self.logits, self.cache
 
 
@@ -398,13 +412,17 @@ class DecodeFn(_ParamsGraphCache):
     graph of the last call (None on the host); ``captures`` and
     ``capture_s`` count the graphs it captured and the seconds that took,
     evicted graphs included; ``evictions`` the graphs it dropped for
-    room."""
+    room; ``impl`` the step's ``transformer.decode_step`` impl."""
 
     limit = MAX_DECODE_GRAPHS
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, impl: str = "dense"):
         super().__init__()
+        if impl not in T.DECODE_IMPLS:
+            raise ValueError(f"impl must be one of {T.DECODE_IMPLS}, got "
+                             f"{impl!r}")
         self.cfg = cfg
+        self.impl = impl
         self.captures = 0
         self.capture_s = 0.0
 
@@ -413,7 +431,8 @@ class DecodeFn(_ParamsGraphCache):
         dev = next(iter(cache.values())).device
         if dev.type != "cuda":
             self.last = None
-            return T.decode_step(params, self.cfg, cache, inputs)
+            return T.decode_step(params, self.cfg, cache, inputs,
+                                 impl=self.impl)
         inputs = {k: torch.as_tensor(v) for k, v in inputs.items()}
         with REGISTRY.span("graphs.lookup"):
             self._keep_params(params)
@@ -423,7 +442,7 @@ class DecodeFn(_ParamsGraphCache):
         if g is None:
             self.last = None
             self._make_room()
-            g = DecodeGraph(params, self.cfg, cache, inputs)
+            g = DecodeGraph(params, self.cfg, cache, inputs, self.impl)
             first = g.capture(_capture_stream(dev))
             self.graphs[key] = self.last = g
             self.captures += 1
@@ -433,9 +452,11 @@ class DecodeFn(_ParamsGraphCache):
         return g.replay(cache, inputs)
 
 
-def make_decode_fn(cfg: ArchConfig) -> DecodeFn:
+def make_decode_fn(cfg: ArchConfig, impl: str = "dense") -> DecodeFn:
     """The counterpart of the reference's jitted decode,
-    ``decode(params, cache, inputs) -> (logits, cache)``.
+    ``decode(params, cache, inputs) -> (logits, cache)``, running
+    :func:`transformer.decode_step` at ``impl`` (``"kernel"``: the fused
+    decode attention in each GQA or hybrid layer).
 
     On a CPU cache it runs :func:`transformer.decode_step` eagerly (the
     plain version).  On the card it keeps one captured CUDA graph a key
@@ -448,7 +469,7 @@ def make_decode_fn(cfg: ArchConfig) -> DecodeFn:
     returned logits alias the graph's static output buffer, which the
     next step overwrites: a caller who keeps them across steps must clone
     them.  A capture that cannot be made raises."""
-    return DecodeFn(cfg)
+    return DecodeFn(cfg, impl)
 
 
 # ---------------------------------------------------------------------------
@@ -476,8 +497,10 @@ class BatchServer:
     Decoding is greedy (the reference's server ignores
     ``Request.temperature`` too).
 
-    ``impl`` picks the prefill's attention and SSD scan (``"kernel"`` by
-    default: the Hopper kernels on the card).  The prefill goes through
+    ``impl`` picks the prefill's attention and SSD scan and the decode
+    step's attention core (``"kernel"`` by default: the Hopper kernels on
+    the card; decode has no ``"chunked"`` form and runs ``"dense"`` for
+    it).  The prefill goes through
     ``prefill_fn``, a :func:`make_prefill_fn` that returns the last
     position's logits only, and the decode step through
     :func:`make_decode_fn` with the position as a device scalar, as the
@@ -513,7 +536,9 @@ class BatchServer:
         self.impl = impl
         self.prefill_fn = make_prefill_fn(cfg, max_len, impl=impl,
                                           last_only=True)
-        self.decode_fn = make_decode_fn(cfg)
+        # decode has no chunked form: "chunked" decodes op by op
+        self.decode_fn = make_decode_fn(
+            cfg, "kernel" if impl == "kernel" else "dense")
         self._decode = self.decode_fn
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self.metrics: Dict[str, float] = {"decoded_tokens": 0,

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core import ParameterService
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kmeans as tk
 from repro_torch.kernels import ops
@@ -924,8 +925,9 @@ def test_cuda_batch_server_graph_tokens_equal_eager(sm90_device):
         server = BatchServer(params, cfg, n_slots=2, max_len=40,
                              device=sm90_device)
         if name == "eager":
+            impl = server.decode_fn.impl
             server._decode = torch.inference_mode()(
-                lambda p, c, i: TT.decode_step(p, cfg, c, i))
+                lambda p, c, i: TT.decode_step(p, cfg, c, i, impl=impl))
         for i, pr in enumerate(prompts):
             server.submit(Request(request_id=f"r{i}", prompt=pr,
                                   max_new_tokens=8))
@@ -984,16 +986,17 @@ def test_cuda_batch_server_counts_evictions_and_spans(sm90_device,
 
 
 def test_cuda_decode_capture_that_syncs_raises(sm90_device, monkeypatch):
-    """A step that reads the position on the host (``_ring`` patched to
-    call ``int``) runs eagerly but cannot be captured: the call raises,
+    """A step that reads the position on the host (``ring_slot`` patched
+    to call ``int``) runs eagerly but cannot be captured: the call raises,
     and the card goes on working."""
+    from repro_torch.models import layers as TL
     from repro_torch.serve import make_decode_fn
     from repro_torch.serve.engine import prefill_with_cache
     cfg = get_arch("internlm2-1.8b").reduced()
     params = TT.init_params(cfg, device=sm90_device, seed=3)
-    ring = TT._ring
-    monkeypatch.setattr(TT, "_ring", lambda cfg, size, length: ring(
-        cfg, size, int(length)))
+    ring = TL.ring_slot
+    monkeypatch.setattr(TL, "ring_slot", lambda length, size, r: ring(
+        int(length), size, r))
     with torch.inference_mode():
         inp = {k: v.to(sm90_device) for k, v in
                _zoo_inputs(cfg, 0, 8).items()}
@@ -1921,3 +1924,162 @@ def test_cuda_outlier_graph_counts_kmeans_launches(sm90_device, fused):
     torch.cuda.synchronize()
     assert mine.count == 4 and other.count == 0
     assert dict(fn.last.launches) == {mine: 1} == dict(fn.last.counted)
+
+
+# decode attention: (batch, slots, kv heads, query heads a group, head_dim,
+# cache type, inputs' type, rope: "shared" / "rows" (M-RoPE) / None, ring)
+DECODE_ATTENTION_CASES = [
+    (2, 96, 2, 1, 64, "bf16", "fp32", "shared", False),
+    (2, 96, 2, 5, 64, "bf16", "fp32", "shared", True),
+    (2, 96, 1, 16, 64, "fp32", "fp32", "rows", False),
+    (2, 160, 2, 1, 128, "fp32", "fp32", None, True),
+    (3, 160, 2, 5, 128, "bf16", "bf16", "rows", False),
+    (2, 160, 1, 16, 128, "bf16", "fp32", "shared", True),
+    (2, 64, 2, 1, 192, "bf16", "fp32", "shared", False),
+    (2, 64, 1, 5, 192, "fp32", "bf16", None, False),
+    (2, 64, 1, 16, 192, "bf16", "fp32", "rows", True),
+    (2, 64, 2, 2, 64, "bf16", "fp32", "shared", False),
+    (2, 128, 2, 4, 128, "bf16", "fp32", "shared", False),
+    (2, 128, 2, 6, 128, "bf16", "fp32", "rows", False),
+    (2, 128, 2, 7, 128, "bf16", "fp32", "shared", False),
+    (2, 96, 2, 12, 192, "bf16", "fp32", "shared", False),
+    (2, 48, 2, 2, 16, "bf16", "fp32", "shared", True),
+    (16, 1280, 5, 5, 64, "bf16", "fp32", "shared", False),   # decode_heavy
+]
+_TYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _decode_attention_inputs(case, device, seed=0):
+    b, s, hkv, rep, d, cache_t, q_t, rope, _ = case
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+    q = rnd(b, hkv * rep, d, dtype=_TYPES[q_t])
+    k, v = (rnd(b, hkv, d, dtype=_TYPES[q_t]) for _ in range(2))
+    kc, vc = (rnd(b, s, hkv, d, dtype=_TYPES[cache_t]) for _ in range(2))
+    cos = sin = None
+    if rope is not None:
+        ang = rnd(b if rope == "rows" else 1, 1, d // 2) * 3.0
+        cos, sin = torch.cos(ang), torch.sin(ang)
+    return q, k, v, kc, vc, cos, sin
+
+
+@pytest.mark.parametrize("case", DECODE_ATTENTION_CASES)
+def test_cuda_decode_attention_matches_plain(sm90_device, case):
+    """The kernel against its plain version on the same card inputs, at
+    one valid key, mid-cache, a full cache and (for a ring) a position
+    past the wrap, the slot the step writes holding a stale row far from
+    the new k and v: the slot written with the same bits, the output
+    within one rounding of the cache's type (the sums run in another
+    order): for bf16, 2^-7 of the value and 2^-8 of the largest value;
+    for fp32, 1e-5 of each."""
+    b, s, hkv, rep, d, cache_t, q_t, rope, ring = case
+    q, k, v, kc, vc, cos, sin = _decode_attention_inputs(case, sm90_device)
+    lengths = [0, s // 2 + 3, s - 1] + ([s + 7, 3 * s + s // 3] if ring
+                                        else [])
+    rtol, of_scale = (2.0 ** -7, 2.0 ** -8) if cache_t == "bf16" else (
+        1e-5, 1e-5)
+    for n in lengths:
+        widx = tda.ring_slot(n, s, ring)[0]
+        kc[:, widx], vc[:, widx] = 40.0, -40.0
+        length = torch.tensor(n, dtype=torch.int32, device=sm90_device)
+        before = tda.LAUNCHES["decode_attention"].count
+        kk, vk = kc.clone(), vc.clone()
+        got = ops.decode_attention(q, k, v, kk, vk, length, cos, sin,
+                                   ring=ring)
+        assert tda.LAUNCHES["decode_attention"].count == before + 1
+        kp, vp = kc.clone(), vc.clone()
+        want = tda.plain(q, k, v, kp, vp, n, cos, sin, ring=ring)
+        torch.cuda.synchronize()
+        assert got.shape == (b, 1, hkv * rep * d) and got.dtype == want.dtype
+        assert torch.equal(kk, kp) and torch.equal(vk, vp), n
+        want = want.float().cpu().numpy()
+        np.testing.assert_allclose(got.float().cpu().numpy(), want,
+                                   rtol=rtol,
+                                   atol=of_scale * np.abs(want).max())
+        kc.copy_(kp)
+        vc.copy_(vp)
+
+
+def test_cuda_decode_attention_repeats_its_bits(sm90_device):
+    """Two launches on the same inputs give the same bits: no atomics, the
+    cluster's partial sums added in rank order."""
+    case = DECODE_ATTENTION_CASES[-1]
+    q, k, v, kc, vc, cos, sin = _decode_attention_inputs(case, sm90_device)
+    length = torch.tensor(767, dtype=torch.int64, device=sm90_device)
+    outs = [ops.decode_attention(q, k, v, kc, vc, length, cos, sin,
+                                 ring=False) for _ in range(3)]
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+def test_cuda_decode_attention_refuses_what_it_does_not_take(sm90_device):
+    """A head_dim the kernel does not take, or scores that fit no cluster's
+    shared memory, raise before any launch, naming the limit."""
+    case = (1, 64, 1, 4, 64, "bf16", "fp32", "shared", False)
+    q, k, v, kc, vc, cos, sin = _decode_attention_inputs(case, sm90_device)
+    length = torch.tensor(3, device=sm90_device)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tda.launch(q[..., :40], k[..., :40], v[..., :40], kc[..., :40],
+                   vc[..., :40], length, cos[..., :20], sin[..., :20],
+                   ring=False)
+    big = torch.zeros((1, 131072, 1, 64), dtype=torch.bfloat16,
+                      device=sm90_device)
+    q16 = torch.zeros((1, 16, 64), device=sm90_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        tda.launch(q16, k, v, big, big.clone(), length, cos, sin, ring=False)
+    with pytest.raises(ValueError, match="1 to 16 query heads"):
+        tda.launch(torch.zeros((1, 17, 64), device=sm90_device), k, v, kc,
+                   vc, length, cos, sin, ring=False)
+
+
+def test_cuda_decode_graph_runs_one_attention_kernel_a_layer(sm90_device):
+    """hymba-1.5b at full width and 2 layers: the decode graph with
+    ``impl="kernel"`` holds one decode attention launch a layer, read
+    from its kernel nodes and counted at its capture, and at least 25
+    fewer kernel nodes a layer than the op-by-op step's graph; its replays
+    give the eager kernel step's bits, and each adds its launches to the
+    counter."""
+    import dataclasses
+    from repro_torch.serve import make_decode_fn
+    cfg = dataclasses.replace(get_arch("hymba-1.5b"), n_layers=2)
+    params = TT.init_params(cfg, device=sm90_device, seed=3)
+    counter = tda.LAUNCHES["decode_attention"]
+    graphs = {}
+    for impl in ("dense", "kernel"):
+        # its own generator: a capture that failed in an earlier test can
+        # leave the default one unable to draw outside a capture
+        gen = torch.Generator(device=sm90_device).manual_seed(5)
+        cache = TT.init_cache(cfg, 4, 96, device=sm90_device)
+        cache["conv"] = cache["conv"].float()
+        for name in ("k", "v", "conv", "ssm"):
+            cache[name].normal_(generator=gen)
+        eager = {n: t.clone() for n, t in cache.items()}
+        decode = make_decode_fn(cfg, impl)
+        before = counter.count
+        for pos in range(40, 44):
+            inp = {"tokens": torch.full((4, 1), pos, device=sm90_device),
+                   "length": torch.tensor(pos, dtype=torch.int32,
+                                          device=sm90_device)}
+            with torch.inference_mode():
+                got, cache = decode(params, cache, inp)
+                got = got.clone()
+                want, eager = TT.decode_step(params, cfg, eager, inp,
+                                             impl=impl)
+            assert torch.equal(got, want), (impl, pos)
+        for name, t in eager.items():
+            assert torch.equal(cache[name], t), (impl, name)
+        g = graphs[impl] = decode.last
+        torch.cuda.synchronize()
+        launches = {c.symbols: n for c, n in g.launches}
+        if impl == "kernel":
+            assert launches == {counter.symbols: cfg.n_layers}
+            assert dict(g.counted) == dict(g.launches)
+            # the eager steps 4, the warm-up 1, three replays: a step each
+            assert counter.count - before == 8 * cfg.n_layers
+        else:
+            assert counter.symbols not in launches
+            assert counter.count == before
+    fewer = graphs["dense"].kernels - graphs["kernel"].kernels
+    assert fewer >= 25 * cfg.n_layers, (graphs["dense"].kernels,
+                                        graphs["kernel"].kernels)
