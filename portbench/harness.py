@@ -4,6 +4,9 @@ Everything that belongs to one configuration, one traffic mix, one cell or
 one per-layer metric is a file of its own under ``portbench/``:
 
 * ``configs/<config>.json`` — the configuration as it is run;
+* ``reference/<module>.py`` — its plain reference, named by the
+  configuration's ``reference`` key (the contract of such a module is in
+  ``reference/__init__.py``);
 * ``traffic/<traffic>.json`` — the traffic mix: its ``kind`` and the
   parameters that kind's generator reads;
 * ``kinds/<kind>.py`` — a generator, and the loop that feeds the
@@ -14,8 +17,8 @@ one per-layer metric is a file of its own under ``portbench/``:
 * ``metrics/<metric>.py`` — one per-layer metric's reader.
 
 ``BENCHMARK.json`` at the root of the checkout says which end-to-end and
-per-layer metrics each cell reports.  A cell, a mix or a metric is added by
-adding files and entries; no file here names one.
+per-layer metrics each cell reports.  A configuration, a cell, a mix or a
+metric is added by adding files and entries; no file here names one.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ class Cell:
     end_to_end: List[dict]
     per_layer: List[dict]
     bench_dir: Path
+    reference: Any
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -77,7 +81,26 @@ def load_cell(name: str, bench_dir: Path = BENCH,
                 end_to_end=[m for m in spec["end_to_end"]
                             if _reports(m, name)],
                 per_layer=[m for m in spec["per_layer"] if _reports(m, name)],
-                bench_dir=bench_dir)
+                bench_dir=bench_dir,
+                reference=load_reference(config["reference"], bench_dir))
+
+
+def load_reference(name: str, bench_dir: Path = BENCH):
+    """The plain reference module ``reference/<name>.py``, as
+    ``portbench.reference.<name>``.  The package's own file is imported
+    as usual, so every importer shares that one module; a file of another
+    directory (a copy of the benchmark) is loaded from its path."""
+    path = bench_dir / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"the configuration's reference {name!r} "
+                                f"has no file {path}")
+    mod_name = f"portbench.reference.{name}"
+    if path.resolve() == (BENCH / "reference" / f"{name}.py").resolve():
+        return importlib.import_module(mod_name)
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_metric(name: str, bench_dir: Path = BENCH):
@@ -95,9 +118,26 @@ def load_kind(kind: str):
     return importlib.import_module(f"portbench.kinds.{kind}")
 
 
+def _plain(value):
+    """``value`` as a configuration file states it: a dataclass as a
+    dict, a tuple as a list."""
+    if dataclasses.is_dataclass(value):
+        value = dataclasses.asdict(value)
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (tuple, list)):
+        return [_plain(v) for v in value]
+    return value
+
+
 def port_arch(config: dict):
     """The port's configuration that ``config`` runs, checked against the
-    file: a size that differs raises."""
+    file: a size that differs raises.  Besides the fixed list below, every
+    field of the port's ``ArchConfig`` that the file gives under the
+    field's own name is compared (nested dataclasses as dicts, tuples as
+    lists), and a port configuration with ``moe`` or ``mla`` needs the
+    file to state it.  The file's ``name`` is the benchmark's and is not
+    compared: ``port_arch`` names the port's."""
     from repro_torch.configs import get_arch
     arch = get_arch(config["port_arch"])
     want = {"n_layers": arch.n_layers, "d_model": arch.d_model,
@@ -111,6 +151,11 @@ def port_arch(config: dict):
             "tie_embeddings": arch.tie_embeddings}
     if arch.ssm is not None:
         want["ssm"] = dataclasses.asdict(arch.ssm)
+    for field in dataclasses.fields(arch):
+        key, value = field.name, getattr(arch, field.name)
+        stated = key in config or (key in ("moe", "mla") and value is not None)
+        if stated and key not in want and key != "name":
+            want[key] = _plain(value)
     for key, value in want.items():
         if config.get(key) != value:
             raise ValueError(f"{config['name']}: {key} is {config.get(key)!r} "

@@ -14,8 +14,9 @@ graph); the window then goes on with the same object.  End-to-end:
 the time from the synchronisation before its first step to the one after
 its last.
 
-``correct``: the reference follows
-the first three steps from the same weights and batches.  Compared are
+``correct``: the reference (``reference/train.py`` over the
+configuration's reference module, ``cell.reference``) follows the first
+three steps from the same weights and batches.  Compared are
 each step's loss (``loss_rel``: the largest relative gap), the norm of each
 leaf's first gradient as the optimizer got it, read from its first moment
 after one step (``grad_gap``), and the norm of each leaf's change after
@@ -120,7 +121,7 @@ def run(run, make_params) -> None:
 def _ref(run, make_params, draw, low: bool):
     opt = dict(run.traffic["optimizer"], **run.traffic["train"])
     with decoder.tf32(low):
-        return reference.steps(make_params(), run.cfg,
+        return reference.steps(run.cell.reference, make_params(), run.cfg,
                                [draw(i) for i in range(CHECKED_STEPS)], opt)
 
 

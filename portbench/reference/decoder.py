@@ -183,6 +183,12 @@ def block(lp, x, cfg, pos, cache_rows_from):
 UNSUPPORTED = ("global_attn_idx", "num_memory_tokens", "kv_reuse_group")
 
 
+def seq_multiple(cfg) -> int:
+    """The length a compared sequence is padded to: the SSD chunk for a
+    ``hybrid`` block, whose scan takes whole chunks, and 1 otherwise."""
+    return cfg["ssm"]["chunk"] if cfg["block"] == "hybrid" else 1
+
+
 def forward(params, cfg, tokens, *, cache_rows_from: Optional[int] = None):
     """Logits (B, S, V) over the real vocabulary of ``tokens`` (B, S)."""
     if any(cfg.get(k) for k in UNSUPPORTED) or \
@@ -190,7 +196,7 @@ def forward(params, cfg, tokens, *, cache_rows_from: Optional[int] = None):
         raise NotImplementedError(
             f"{cfg['name']}: the reference runs one window in every layer, "
             "no meta tokens, one cache a layer and Mamba2 SSD heads")
-    if cfg["block"] == "hybrid" and tokens.shape[1] % cfg["ssm"]["chunk"]:
+    if tokens.shape[1] % seq_multiple(cfg):
         raise ValueError("pad the sequence to a multiple of the SSD chunk")
     x = params["embed"][tokens]
     pos = torch.arange(tokens.shape[1], device=tokens.device)

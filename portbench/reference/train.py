@@ -1,8 +1,9 @@
 """The plain reference of a training step: the mean next-token cross
 entropy, its gradient by autograd over blocks of rows, clipping by the
 global norm, and AdamW with a warm-up and cosine learning rate, all in
-float32 PyTorch operations.  It imports nothing of the program under
-test.
+float32 PyTorch operations, over the loss of a configuration's reference
+module (its ``token_loss``), which the caller hands in.  It imports
+nothing of the program under test.
 
 AdamW as the configuration's ``train`` entry states it: the moments start
 at zero, the bias corrections are taken at ``step + 1``, ``eps`` is added
@@ -17,8 +18,6 @@ import math
 from typing import Dict, List
 
 import torch
-
-from portbench.reference import decoder
 
 
 def learning_rate(opt, step: int) -> float:
@@ -46,8 +45,9 @@ def _tree(tree, values, prefix=()):
     return [_tree(v, values, prefix + (i,)) for i, v in enumerate(tree)]
 
 
-def steps(params, cfg, batches, opt, rows_at_once: int = 1) -> Dict:
-    """AdamW steps from ``params`` (left as they are), one a batch of
+def steps(model, params, cfg, batches, opt, rows_at_once: int = 1) -> Dict:
+    """AdamW steps of the loss of ``model`` (the configuration's reference
+    module) from ``params`` (left as they are), one a batch of
     ``batches`` ({"tokens", "labels"} of (B, S)).  Returns ``losses`` (one
     a step, before its update), ``first_grad`` (the norm of each leaf's
     clipped gradient at the first step, by path) and ``change`` (the norm
@@ -64,8 +64,8 @@ def steps(params, cfg, batches, opt, rows_at_once: int = 1) -> Dict:
         count = tokens.numel()
         total = 0.0
         for r in range(0, tokens.shape[0], rows_at_once):
-            part = decoder.token_loss(tree, cfg, tokens[r:r + rows_at_once],
-                                      labels[r:r + rows_at_once]) / count
+            part = model.token_loss(tree, cfg, tokens[r:r + rows_at_once],
+                                    labels[r:r + rows_at_once]) / count
             part.backward()
             total += float(part.detach())
             del part

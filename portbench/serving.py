@@ -5,8 +5,10 @@ around the server's calls into its layers, and the comparison that decides
 
 The comparison for a served model: once the window has closed and the
 server is freed, a sample of the finished requests, drawn from the seed and
-holding the longest, is run through the plain reference
-(``reference/decoder.py``) over each prompt followed by its served tokens.
+holding the longest, is run through the configuration's plain reference
+(the module its ``reference`` key names, ``cell.reference``) over each
+prompt followed by its served tokens, padded to the module's
+``seq_multiple``.
 At each position that served a token (the prompt's last and on), the gap by
 which the served token's reference logit lies below the reference's best is
 read; the cell's numbers are the widest and the mean of those gaps.  Under
@@ -160,18 +162,18 @@ def check(run, params, finished) -> None:
     at the same positions, and it is the control's numbers that are held
     to the limits (the run should come out not correct); the program's go
     to ``run.readings``."""
-    cfg = run.cfg
-    chunk = cfg["ssm"]["chunk"] if cfg["block"] == "hybrid" else 1
+    cfg, model = run.cfg, run.cell.reference
+    multiple = model.seq_multiple(cfg)
     gaps, low_gaps = [], []
     for prompt, tokens in sample(run, finished,
                                  run.cell.check["sample_requests"]):
         s = len(prompt)
         seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)])
-        padded = -(-len(seq) // chunk) * chunk
+        padded = -(-len(seq) // multiple) * multiple
         ids = torch.zeros((1, padded), dtype=torch.long, device=run.device)
         ids[0, :len(seq)] = torch.from_numpy(seq.astype(np.int64))
         # the positions that served a token: the prompt's last and on
-        ref = decoder.forward(params, cfg, ids, cache_rows_from=s)[0]
+        ref = model.forward(params, cfg, ids, cache_rows_from=s)[0]
         served = ref[s - 1:len(seq)]
         del ref
         best = served.max(-1).values
@@ -179,7 +181,7 @@ def check(run, params, finished) -> None:
         gaps.append(_gaps(served, best, got).cpu())
         if run.control:
             with decoder.tf32(True):
-                low = decoder.forward(params, cfg, ids, cache_rows_from=s)[0]
+                low = model.forward(params, cfg, ids, cache_rows_from=s)[0]
             pick = low[s - 1:len(seq)].argmax(-1)
             del low
             low_gaps.append(_gaps(served, best, pick).cpu())

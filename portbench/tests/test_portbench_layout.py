@@ -38,10 +38,16 @@ def test_cell_resolves_its_files_by_name(cell):
     assert c.per_layer
 
 
-def test_a_cell_added_as_files_is_found(tmp_path):
+def _copy_bench(tmp_path) -> Path:
+    """A copy of ``portbench/`` (without its tests) under ``tmp_path``."""
     bench = tmp_path / "portbench"
     shutil.copytree(ROOT / "portbench", bench,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    return bench
+
+
+def test_a_cell_added_as_files_is_found(tmp_path):
+    bench = _copy_bench(tmp_path)
     mix = json.loads((bench / "traffic" / "decode_heavy.json").read_text())
     mix["queued"] = 8
     (bench / "traffic" / "decode_light.json").write_text(json.dumps(mix))
@@ -76,6 +82,159 @@ def test_a_cell_added_as_files_is_found(tmp_path):
                                                    "setup_s"}
     reader = harness.load_metric("serve.waves", bench)
     assert reader.read({"waves": [{}, {}]}, None) == 2
+
+
+TOY_SSM = '''"""A pure Mamba2 stack, a block decoder.block lacks: the
+embedding, pre-norm Mamba2 blocks on the residual, the final norm and the
+head tied to the embedding."""
+from portbench.reference import decoder
+
+
+def seq_multiple(cfg):
+    return cfg["ssm"]["chunk"]
+
+
+def forward(params, cfg, ids, *, cache_rows_from=None):
+    if ids.shape[1] % seq_multiple(cfg):
+        raise ValueError("pad the sequence to a multiple of the SSD chunk")
+    eps = cfg["norm_eps"]
+    x = params["embed"][ids]
+    for lp in params["blocks"]:
+        x = x + decoder.mamba2(lp["ssm"], decoder.rms(x, lp["ln1"], eps), cfg)
+    x = decoder.rms(x, params["ln_f"], eps)
+    return x @ params["embed"][:cfg["vocab_size"]].T
+'''
+
+# the port's mamba2-130m as a configuration file states it
+MAMBA2 = {
+    "name": "mamba2-130m", "port_arch": "mamba2-130m",
+    "reference": "toy_ssm", "block": "none", "pos_kind": "none",
+    "n_layers": 24, "d_model": 768, "n_heads": 0, "n_kv_heads": 0,
+    "d_head": 0, "d_ff": 0, "ffn_kind": "none", "vocab_size": 50280,
+    "padded_vocab_size": 50304, "rope_theta": 10000.0, "norm_eps": 1e-05,
+    "sliding_window": None, "tie_embeddings": True,
+    "ssm": {"d_state": 128, "d_conv": 4, "expand": 2, "head_dim": 64,
+            "n_groups": 1, "chunk": 256, "dt_min": 0.001, "dt_max": 0.1},
+    "impl": "kernel", "precision": {"weights": "float32", "tf32": False},
+    "reduced": []}
+
+
+def test_a_configuration_added_as_files_is_found_and_used(tmp_path,
+                                                          monkeypatch):
+    import torch
+    from portbench.tests import tiny
+    bench = _copy_bench(tmp_path)
+    before = sorted(p for p in bench.rglob("*") if p.is_file())
+    (bench / "reference" / "toy_ssm.py").write_text(TOY_SSM)
+    (bench / "configs" / "mamba2-130m.json").write_text(json.dumps(MAMBA2))
+    (bench / "traffic" / "chat.json").write_text(json.dumps(
+        dict(tiny.TRAFFIC["backlog"], kind="backlog", trace_s=1.0)))
+    name = "mamba2-130m.chat"
+    (bench / "workloads" / f"{name}.json").write_text(json.dumps(
+        {"config": "mamba2-130m", "traffic": "chat",
+         "check": {"sample_requests": 4,
+                   "limits": {"served_gap_mean": 1e-3}}}))
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append({"name": "mamba2-130m",
+                            "source": "https://huggingface.co/state-spaces/"
+                                      "mamba2-130m",
+                            "file": "portbench/configs/mamba2-130m.json",
+                            "reduced": [], "why": "a pure Mamba2 stack"})
+    spec["workloads"].append({"name": name, "config": "mamba2-130m",
+                              "traffic": "chat", "chips": 1,
+                              "why": "short prompts, a pure SSM decode"})
+    next(m for m in spec["end_to_end"] if m["name"] == "gen_tokens_per_s")[
+        "workloads"].append(name)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    full = harness.load_cell(name, bench_dir=bench)
+    assert harness.port_arch(full.config).name == "mamba2-130m"
+    cell, arch = tiny.cell(name, bench)
+    for module in (full.reference, cell.reference):
+        assert module.__name__ == "portbench.reference.toy_ssm"
+        assert Path(module.__file__) == bench / "reference" / "toy_ssm.py"
+    model = cell.reference
+    multiple = model.seq_multiple(cell.config)
+    calls, forward = [], model.forward
+
+    def counted(params, cfg, ids, **kw):
+        calls.append(ids.shape[1])
+        return forward(params, cfg, ids, **kw)
+    monkeypatch.setattr(model, "forward", counted)
+    run = harness.run_cell(cell, 2 ** 31 + 211, 1.5, False,
+                           torch.device("cpu"), arch=arch)
+    assert run.correct, run.checks
+    prompt = int(next(iter(cell.traffic["prompt_len"])))
+    served = prompt + cell.traffic["new_tokens"] - 1
+    assert multiple == arch.ssm.chunk == 32
+    assert 1 <= len(calls) <= cell.check["sample_requests"]
+    assert calls == [-(-served // multiple) * multiple] * len(calls)
+    for path in before:
+        rel = path.relative_to(bench)
+        assert path.read_bytes() == (ROOT / "portbench" / rel).read_bytes()
+
+
+def test_a_missing_reference_fails_when_the_cell_loads(tmp_path):
+    bench = _copy_bench(tmp_path)
+    path = bench / "configs" / "internlm2-1.8b.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()),
+                                    reference="absent")))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(SPEC))
+    with pytest.raises(FileNotFoundError, match=r"reference/absent\.py"):
+        harness.load_cell("internlm2-1.8b.train_4x1k", bench_dir=bench)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_cell_and_its_tiny_form_resolve_the_files_reference(cell):
+    from portbench.reference import decoder
+    from portbench.tests import tiny
+    full = harness.load_cell(cell)
+    assert full.config["reference"] == "decoder"
+    assert full.reference is decoder
+    small, _ = tiny.cell(cell)
+    assert small.config["reference"] == full.config["reference"]
+    assert small.reference is decoder
+
+
+@pytest.mark.parametrize("config,multiple", [("hymba-1.5b", 256),
+                                             ("internlm2-1.8b", 1)])
+def test_the_decoder_pads_as_its_block_needs(config, multiple):
+    from portbench.reference import decoder
+    cfg = json.loads((ROOT / f"portbench/configs/{config}.json").read_text())
+    assert decoder.seq_multiple(cfg) == multiple
+
+
+@pytest.mark.parametrize("port,key,size", [
+    ("qwen3-moe-235b-a22b", "moe", "top_k"),
+    ("minicpm3-4b", "mla", "kv_lora_rank")])
+def test_port_arch_checks_every_size_the_file_states(port, key, size,
+                                                     monkeypatch):
+    import dataclasses
+    import repro_torch.configs
+    from portbench.tests import tiny
+    arch = repro_torch.configs.get_arch(port).reduced()
+    monkeypatch.setattr(repro_torch.configs, "get_arch", lambda name: arch)
+    cfg = dict(tiny.config_of(arch), pos_kind=arch.pos_kind,
+               **{key: dataclasses.asdict(getattr(arch, key))})
+    assert harness.port_arch(cfg) is arch
+    with pytest.raises(ValueError, match=key):
+        harness.port_arch(dict(cfg, **{key: dict(cfg[key], **{
+            size: cfg[key][size] + 1})}))
+    with pytest.raises(ValueError, match=key):
+        harness.port_arch({k: v for k, v in cfg.items() if k != key})
+    with pytest.raises(ValueError, match="pos_kind"):
+        harness.port_arch(dict(cfg, pos_kind="mrope"))
+
+
+@pytest.mark.parametrize("count,args", [
+    (Y.decode_bytes, (16, 256)), (Y.prefill_flops, (1, 512)),
+    (Y.train_flops, (4, 1024))])
+def test_the_yardstick_raises_on_a_block_it_does_not_know(count, args):
+    cfg = json.loads((ROOT / "portbench/configs/hymba-1.5b.json")
+                     .read_text())
+    assert count(cfg, *args) > 0
+    with pytest.raises(ValueError, match="no block 'mla'"):
+        count(dict(cfg, block="mla"), *args)
 
 
 def test_names_units_and_lengths_keep_to_the_contract():

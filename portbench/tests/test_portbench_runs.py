@@ -153,7 +153,8 @@ def test_the_reference_training_steps_agree_with_the_port():
     for i in range(3):
         p, state, m = step(p, state, draw(i))
         losses.append(float(m["loss"]))
-    ref = reference.steps(params, cfg, [draw(i) for i in range(3)],
+    ref = reference.steps(cell.reference, params, cfg,
+                          [draw(i) for i in range(3)],
                           dict(tr["optimizer"], **tr["train"]))
     assert ref["losses"] == pytest.approx(losses, rel=1e-6)
     for path, t in weights.leaves(p):

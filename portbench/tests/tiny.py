@@ -30,11 +30,13 @@ def config_of(arch) -> dict:
     return cfg
 
 
-def cell(name: str):
-    """(cell, port arch) of ``name`` cut to the tiny size."""
+def cell(name: str, bench_dir=harness.BENCH):
+    """(cell, port arch) of ``name`` cut to the tiny size; the tiny
+    configuration keeps the full one's ``impl`` and ``reference``."""
     from repro_torch.configs import get_arch
-    full = harness.load_cell(name)
+    full = harness.load_cell(name, bench_dir)
     arch = get_arch(full.config["port_arch"]).reduced()
-    cfg = dict(config_of(arch), impl=full.config["impl"])
+    cfg = dict(config_of(arch), impl=full.config["impl"],
+               reference=full.config["reference"])
     traffic = dict(full.traffic, **TRAFFIC[full.traffic["kind"]])
     return dataclasses.replace(full, config=cfg, traffic=traffic), arch

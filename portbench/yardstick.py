@@ -62,6 +62,18 @@ def ssd_bound_ms(case, dtype: str) -> Tuple[float, str]:
 
 # --- the model's work, from the configuration file -------------------------
 
+BLOCKS = ("gqa", "hybrid")
+
+
+def _hybrid(cfg) -> bool:
+    """Whether the block has SSM heads beside its attention; a block the
+    counts below do not know raises, so that it is never counted as
+    another."""
+    if cfg["block"] not in BLOCKS:
+        raise ValueError(f"the yardstick counts no block {cfg['block']!r}; "
+                         f"known: {BLOCKS}")
+    return cfg["block"] == "hybrid"
+
 
 def ssm_dims(cfg) -> Tuple[int, int, int]:
     """(inner width, SSM heads, conv channels) of a configuration."""
@@ -77,7 +89,7 @@ def layer_matmul_params(cfg) -> int:
     d, h, kv, hd = (cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"],
                     cfg["d_head"])
     n = d * h * hd + 2 * d * kv * hd + h * hd * d
-    if cfg["block"] == "hybrid":
+    if _hybrid(cfg):
         s = cfg["ssm"]
         d_in, nh, _ = ssm_dims(cfg)
         n += d * (2 * d_in + 2 * s["n_groups"] * s["d_state"] + nh)
@@ -124,7 +136,7 @@ def prefill_flops(cfg, b: int, s: int) -> float:
     per_layer = 2.0 * layer_matmul_params(cfg) * b * s
     per_layer += 4.0 * cfg["d_head"] * cfg["n_heads"] * b * attention_pairs(
         s, cfg.get("sliding_window"))
-    if cfg["block"] == "hybrid":
+    if _hybrid(cfg):
         per_layer += ssd_flops(cfg, b, s)
     return layers * per_layer + 2.0 * head_params(cfg) * b
 
@@ -154,7 +166,7 @@ def decode_bytes(cfg, b: int, length: int) -> float:
         filled = min(filled, cfg["sliding_window"])
     kv = 2 * 2 * b * filled * cfg["n_kv_heads"] * cfg["d_head"]
     state = 0
-    if cfg["block"] == "hybrid":
+    if _hybrid(cfg):
         sc = cfg["ssm"]
         _, nh, conv = ssm_dims(cfg)
         state = 2 * 4 * b * (nh * sc["head_dim"] * sc["d_state"]
