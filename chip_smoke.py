@@ -216,7 +216,8 @@ FLASH_ZOO = [(4, 1024, 1024, 12, 2, 128, True, None),
 # widths, and a ragged chunk of 200; then the edges of the kernel's tiles:
 # ds 4 and 256, hd 30 (rows staged element by element) and 256, 4 B/C
 # groups of 8 heads, and hymba's widths at 1,024 tokens; last,
-# mamba2-130m's widest serving wave.
+# mamba2-130m's widest serving wave and granite-4.0-h-small's (32 × 256
+# tokens, 128 heads of 64, d_state 128).
 SSD_CASES = [
     (1, 64, 2, 16, 1, 16, 16),
     (2, 128, 4, 32, 1, 16, 32),
@@ -233,10 +234,15 @@ SSD_CASES = [
     (1, 256, 8, 32, 4, 16, 64),
     (2, 1024, 50, 64, 1, 16, 256),
     (4, 4096, 24, 64, 1, 128, 256),
+    (32, 256, 128, 64, 1, 128, 256),
 ]
 SSD_MAIN = [(4, 1024, 50, 64, 1, 16, 256), (4, 4096, 50, 64, 1, 16, 256)]
 # mamba2-130m served at full depth: its 4,096-token wave, d_state 128
 SSD_ZOO = [(4, 4096, 24, 64, 1, 128, 256)]
+# the flash kernel with a score scale other than 1/sqrt(D):
+# granite-4.0-h-small's served wave, 32 × 256 tokens, 32 heads on 8 of 128,
+# no rope, scores times 1/128
+FLASH_SCALED = [((32, 256, 256, 32, 8, 128, True, None), 1 / 128)]
 # decode attention: (b, cache slots, kv heads, query heads a group,
 # head_dim, valid keys timed).  The benchmark's decode_heavy step
 # (hymba-1.5b: 16 slots over 1,280, its mean of 769 valid keys) and
@@ -245,6 +251,9 @@ SSD_ZOO = [(4, 4096, 24, 64, 1, 128, 256)]
 # rope tables, as the servers run them
 DECODE_ATTENTION_MAIN = [(16, 1280, 5, 5, 64, 769),
                          (4, 2064, 8, 4, 128, 2049)]
+# granite-4.0-h-small's batch_decode step: 32 slots over 768, 32 heads on
+# 8 of 128, its mean of 512 valid keys, no rope, scores times 1/128
+DECODE_ATTENTION_NOPE = [((32, 768, 8, 4, 128, 512), 1 / 128)]
 # the old row of the slot a step writes, far from any new k or v
 STALE_ROW = 40.0
 # tests/test_kernels.py:16-18 (fp32, bf16) and :123 (the SSD scan)
@@ -667,25 +676,31 @@ def flash_tol(want, dtype):
 
 def check_flash(torch, fa, tref, device):
     """The flash kernel against its plain version on every case in fp32 and
-    bf16 (:func:`flash_tol`), and against the O(S²) oracle where it fits,
+    bf16 (:func:`flash_tol`), ``FLASH_SCALED``'s at their scales, and
+    against the O(S²) oracle (at 1/√D) where it fits,
     at the reference's tolerance; raises on a miss.  Returns the largest
     fp32 error."""
     worst = 0.0
-    for case in FLASH_CASES:
+    cases = [(case, None) for case in FLASH_CASES] + FLASH_SCALED
+    for case, scale in cases:
         causal, window = case[6], case[7]
         for dtype in ("fp32", "bf16"):
             q, k, v = flash_inputs(torch, case, dtype, device, sum(case[:6]))
-            out = fa.launch(q, k, v, causal=causal, window=window)
-            want = fa.plain(q, k, v, causal=causal, window=window)
+            out = fa.launch(q, k, v, causal=causal, window=window,
+                            scale=scale)
+            want = fa.plain(q, k, v, causal=causal, window=window,
+                            scale=scale)
             torch.cuda.synchronize()
             err = float((out.float() - want.float()).abs().max())
             tol = flash_tol(want, dtype)
             if out.shape != q.shape or out.dtype != q.dtype or bool(
                     ((out.float() - want.float()).abs() > tol).any()):
                 raise AssertionError(f"flash kernel vs plain at {case} "
-                                     f"{dtype}: max error {err}")
-            row = {"case": list(case), "dtype": dtype, "max_abs_err": err}
-            if case[1] <= 512:
+                                     f"scale {scale} {dtype}: max error "
+                                     f"{err}")
+            row = {"case": list(case), "scale": scale, "dtype": dtype,
+                   "max_abs_err": err}
+            if case[1] <= 512 and scale is None:    # the oracle's 1/sqrt(D)
                 oracle = tref.flash_attention_ref(q, k, v, causal=causal,
                                                   window=window)
                 row["oracle_max_abs_err"] = float(
@@ -917,7 +932,8 @@ def decode_attention_tol(want):
 def check_decode_attention(torch, tda, device):
     """The decode attention kernel (``tda.launch``) against its plain
     version on the same card inputs at the main path's shapes
-    (``DECODE_ATTENTION_MAIN``), as a full cache and as a ring, at one
+    (``DECODE_ATTENTION_MAIN``, roped, and ``DECODE_ATTENTION_NOPE``,
+    unroped at its own scale), as a full cache and as a ring, at one
     valid key, the timed position, a full cache and (a ring) two
     positions past its wrap.  Before each call the slot the step writes
     holds ``±STALE_ROW``, so a read of the old row shows.  The caches
@@ -925,10 +941,14 @@ def check_decode_attention(torch, tda, device):
     and within :func:`decode_attention_tol`; raises on a miss.  Returns
     the largest error."""
     worst = 0.0
-    for case in DECODE_ATTENTION_MAIN:
+    cases = [(case, True, None) for case in DECODE_ATTENTION_MAIN] + [
+        (case, False, scale) for case, scale in DECODE_ATTENTION_NOPE]
+    for case, roped, scale in cases:
         b, s, hkv, rep, d, timed = case
         q, k, v, kc, vc, cos, sin = decode_attention_inputs(
             torch, case, device, sum(case))
+        if not roped:
+            cos = sin = None
         for ring in (False, True):
             positions = [0, timed - 1, s - 1] + (
                 [s + 7, 3 * s + s // 3] if ring else [])
@@ -940,9 +960,9 @@ def check_decode_attention(torch, tda, device):
                 kk, vk = base_k.clone(), base_v.clone()
                 length = torch.tensor(n, dtype=torch.int32, device=device)
                 got = tda.launch(q, k, v, kk, vk, length, cos, sin,
-                                 ring=ring)
+                                 ring=ring, scale=scale)
                 want = tda.plain(q, k, v, base_k, base_v, n, cos, sin,
-                                 ring=ring)
+                                 ring=ring, scale=scale)
                 torch.cuda.synchronize()
                 diff = (got.float() - want.float()).abs()
                 if (got.shape != want.shape or got.dtype != want.dtype
@@ -950,8 +970,9 @@ def check_decode_attention(torch, tda, device):
                         or not torch.equal(vk, base_v)
                         or bool((diff > decode_attention_tol(want)).any())):
                     raise AssertionError(
-                        f"decode attention kernel vs plain at {case} ring "
-                        f"{ring} position {n}: max error {float(diff.max())}"
+                        f"decode attention kernel vs plain at {case} rope "
+                        f"{roped} scale {scale} ring {ring} position {n}: "
+                        f"max error {float(diff.max())}"
                         f" of {float(want.float().abs().max())}, caches "
                         f"equal {torch.equal(kk, base_k)} "
                         f"{torch.equal(vk, base_v)}")
@@ -959,8 +980,9 @@ def check_decode_attention(torch, tda, device):
                 of_scale.append(errs[-1] / float(want.float().abs().max()))
                 del base_k, base_v, kk, vk, got, want, diff
             worst = max(worst, max(errs))
-            emit("check_decode_attention", case=list(case), ring=ring,
-                 positions=positions, max_abs_err=errs,
+            emit("check_decode_attention", case=list(case), rope=roped,
+                 scale=scale, ring=ring, positions=positions,
+                 max_abs_err=errs,
                  err_of_scale=of_scale, stale_row=STALE_ROW)
         del q, k, v, kc, vc, cos, sin
     return worst
@@ -3576,11 +3598,11 @@ def lm_example(torch, fa, device):
                                                                **kw)))
         return made_prefill[-1]
 
-    def kept_launch(q, k, v, *, causal=True, window=None):
-        out = launch(q, k, v, causal=causal, window=window)
+    def kept_launch(q, k, v, *, causal=True, window=None, scale=None):
+        out = launch(q, k, v, causal=causal, window=window, scale=scale)
         if not torch.cuda.is_current_stream_capturing():
             seen.append((q.clone(), k.clone(), v.clone(), causal, window,
-                         out.clone()))
+                         scale, out.clone()))
         return out
 
     for counter in fa.LAUNCHES.values():
@@ -3605,8 +3627,8 @@ def lm_example(torch, fa, device):
     launches = check_launches(checked, fa.LAUNCHES,
                               dict.fromkeys(fa.LAUNCHES, cfg.n_layers))
     worst, shapes = 0.0, set()
-    for q, k, v, causal, window, got in seen:
-        want = fa.plain(q, k, v, causal=causal, window=window)
+    for q, k, v, causal, window, scale, got in seen:
+        want = fa.plain(q, k, v, causal=causal, window=window, scale=scale)
         diff = (got.float() - want.float()).abs()
         worst = max(worst, float(diff.max()))
         shapes.add((*q.shape, k.shape[2], str(q.dtype), causal, window))

@@ -113,6 +113,29 @@ QWEN3_MOE_235B = register(ArchConfig(
     notes="128 experts top-8 [hf:Qwen/Qwen3-30B-A3B scaled family]",
 ))
 
+# granitemoehybrid: 36 Mamba2 and 4 NoPE GQA layers, each followed by 72
+# SwiGLU experts (top-10) and a shared SwiGLU; served as one card's share of
+# an 8-way expert-parallel deployment (experts 0-8 of each layer), the rest
+# whole.  Not in ALL_ARCHS: the reference's zoo has no counterpart
+GRANITE_4_0_H_SMALL = register(ArchConfig(
+    name="granite-4.0-h-small", family="hybrid",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=1536, vocab_size=100352,
+    ffn_kind="swiglu", attn_kind="pattern", pos_kind="none",
+    layer_types=tuple("attention" if i in (5, 15, 25, 35) else "mamba"
+                      for i in range(40)),
+    ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64, n_groups=1,
+                  chunk=256),
+    moe=MoEConfig(n_experts=72, top_k=10, d_expert=768, dense_residual=True,
+                  experts_held=9, dropless=True),
+    attention_multiplier=0.0078125, embedding_multiplier=12.0,
+    residual_multiplier=0.22, logits_scaling=16.0,
+    tie_embeddings=True, skip_shapes=_FULL_ATTN_SKIP,
+    notes=("Mamba2 + NoPE GQA by layer, 72 experts top-10 + a shared "
+           "expert, muP-style multipliers [hf:ibm-granite/"
+           "granite-4.0-h-small]; this card holds experts 0-8 of 72"),
+))
+
 ALL_ARCHS = [
     "nemotron-4-340b", "internlm2-1.8b", "minicpm3-4b", "mistral-nemo-12b",
     "musicgen-medium", "qwen2-vl-2b", "mamba2-130m", "hymba-1.5b",

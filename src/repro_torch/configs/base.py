@@ -22,6 +22,17 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
     router_z_coef: float = 1e-3
+    # one card's share of an expert-parallel deployment: it holds experts
+    # 0 .. experts_held - 1 (0: all of them); the router keeps every
+    # expert, and what it sends to an absent one adds nothing here
+    experts_held: int = 0
+    # capacity = the call's tokens, so no routed token is ever dropped
+    dropless: bool = False
+
+    @property
+    def held(self) -> int:
+        """The experts this layer holds and computes."""
+        return self.experts_held or self.n_experts
 
 
 @dataclass(frozen=True)
@@ -59,7 +70,7 @@ class ArchConfig:
     vocab_size: int
     d_head: int = 0                # 0 => d_model // n_heads
     ffn_kind: str = "swiglu"       # swiglu | relu2 | gelu | none
-    attn_kind: str = "gqa"         # gqa | mla | none | hybrid
+    attn_kind: str = "gqa"         # gqa | mla | none | hybrid | pattern
     pos_kind: str = "rope"         # rope | mrope | none
     rope_theta: float = 10000.0
     mrope_sections: tuple = (16, 24, 24)   # qwen2-vl (t, h, w) per-head-dim halves
@@ -71,6 +82,19 @@ class ArchConfig:
     input_mode: str = "tokens"     # tokens | embeddings (vlm stub frontend)
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # granitemoehybrid (granite-4.0-h): attn_kind "pattern" takes each
+    # layer's mixer from layer_types, "attention" (GQA at pos_kind's
+    # positions) or "mamba" (the Mamba2 mixer), as its config.json names
+    # them; every layer is followed by the FFN / MoE
+    layer_types: tuple = ()
+    # attention's score scale (None: 1/sqrt(head_dim)); the embedding's
+    # output times embedding_multiplier; each block's two branch outputs
+    # times residual_multiplier before their residual adds; the logits
+    # divided by logits_scaling.  The defaults change nothing
+    attention_multiplier: Optional[float] = None
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     # training knobs
     optimizer: str = "adamw"       # adamw | adafactor (huge archs)
     remat: bool = True
@@ -85,6 +109,31 @@ class ArchConfig:
         if self.n_heads:
             return self.d_model // self.n_heads
         return 0
+
+    def mixer(self, layer: int) -> str:
+        """Layer ``layer``'s mixer as an ``attn_kind``: a pattern's
+        "attention" layers ``gqa`` and its "mamba" layers ``none``; every
+        layer of any other configuration ``attn_kind``."""
+        if self.attn_kind != "pattern":
+            return self.attn_kind
+        kind = self.layer_types[layer]
+        if kind not in _PATTERN_KINDS:
+            raise ValueError(f"layer {layer}: no mixer {kind!r}; known: "
+                             f"{sorted(_PATTERN_KINDS)}")
+        return _PATTERN_KINDS[kind]
+
+    def state_index(self, layer: int) -> int:
+        """Where layer ``layer``'s state lies on the leading axis of its
+        cache entries: among the layers of its own mixer, in order (the
+        layer itself where every layer has one mixer)."""
+        if self.attn_kind != "pattern":
+            return layer
+        kind = self.mixer(layer)
+        return sum(self.mixer(i) == kind for i in range(layer))
+
+    def n_mixers(self, *kinds: str) -> int:
+        """How many layers have a mixer among ``kinds``."""
+        return sum(self.mixer(i) in kinds for i in range(self.n_layers))
 
     @property
     def padded_vocab_size(self) -> int:
@@ -101,29 +150,34 @@ class ArchConfig:
         if not self.tie_embeddings:
             n += d * self.vocab_size * self.n_codebooks     # lm head
         n += d                                              # final norm
-        n += L * self._block_params()
+        n += sum(self._block_params(self.mixer(i)) for i in range(L))
         return n
 
     @property
     def active_param_count(self) -> int:
-        """Params active per token (MoE: only routed experts count)."""
+        """Params active per token (MoE: only routed experts count; of
+        held experts, the top_k · held / n_experts a token meets on
+        average)."""
         if self.moe is None:
             return self.param_count
         m = self.moe
         per_expert = 3 * self.d_model * m.d_expert
-        inactive = (m.n_experts - m.top_k) * per_expert * self.n_layers
+        used = m.top_k * m.held // m.n_experts
+        inactive = (m.held - used) * per_expert * self.n_layers
         return self.param_count - inactive
 
-    def _block_params(self) -> int:
+    def _block_params(self, kind: str) -> int:
+        """Parameters of one block whose mixer is ``kind`` (an
+        ``attn_kind``)."""
         d = self.d_model
         n = 2 * d  # two rms norms
         # --- attention ---
-        if self.attn_kind == "gqa" or self.attn_kind == "hybrid":
+        if kind == "gqa" or kind == "hybrid":
             hd = self.head_dim
             n += d * self.n_heads * hd            # wq
             n += 2 * d * self.n_kv_heads * hd     # wk, wv
             n += self.n_heads * hd * d            # wo
-        elif self.attn_kind == "mla":
+        elif kind == "mla":
             m = self.mla
             qk = m.qk_nope_dim + m.qk_rope_dim
             n += d * m.q_lora_rank + m.q_lora_rank               # wq_a + norm
@@ -132,7 +186,7 @@ class ArchConfig:
             n += m.kv_lora_rank * self.n_heads * (m.qk_nope_dim + m.v_head_dim)
             n += self.n_heads * m.v_head_dim * d                 # wo
         # --- ssm (mamba2 / hybrid) ---
-        if self.ssm is not None and self.attn_kind in ("none", "hybrid"):
+        if self.ssm is not None and kind in ("none", "hybrid"):
             s = self.ssm
             d_in = s.expand * d
             nh = d_in // s.head_dim
@@ -146,7 +200,7 @@ class ArchConfig:
         mults = {"swiglu": 3, "relu2": 2, "gelu": 2, "none": 0}
         if self.moe is not None:
             n += d * self.moe.n_experts                            # router
-            n += self.moe.n_experts * 3 * d * self.moe.d_expert    # swiglu experts
+            n += self.moe.held * 3 * d * self.moe.d_expert         # swiglu experts
             if self.moe.dense_residual:
                 n += mults[self.ffn_kind] * d * self.d_ff
         elif self.d_ff:
@@ -167,7 +221,11 @@ class ArchConfig:
         )
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(
-                self.moe, n_experts=4, top_k=min(self.moe.top_k, 2), d_expert=32)
+                self.moe, n_experts=4, top_k=min(self.moe.top_k, 2), d_expert=32,
+                # fewer held than experts, where the full config holds fewer
+                experts_held=min(self.moe.experts_held, 2))
+        if self.attn_kind == "pattern":
+            kw["layer_types"] = ("mamba", "attention")
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=16, chunk=32)
@@ -197,6 +255,8 @@ SHAPES = {
     "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
 }
 
+_PATTERN_KINDS = {"attention": "gqa", "mamba": "none"}
+
 _REGISTRY: dict = {}
 
 
@@ -217,8 +277,12 @@ def get_arch(name: str) -> ArchConfig:
 
 
 def list_archs() -> list:
-    from repro_torch.configs import all as _all  # noqa: F401
-    return sorted(_REGISTRY)
+    """The zoo: the architectures of the reference's registry
+    (``configs.all.ALL_ARCHS``), each with its dry-run cells.  A served
+    configuration the reference has no counterpart of is left out;
+    :func:`get_arch` finds it by name."""
+    from repro_torch.configs import all as _all
+    return sorted(_all.ALL_ARCHS)
 
 
 def cells(arch: ArchConfig):

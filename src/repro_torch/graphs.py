@@ -24,6 +24,7 @@ and ``graphs.replay`` (the replay call alone).
 from __future__ import annotations
 
 import ctypes
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -39,7 +40,13 @@ from repro_torch.spans import REGISTRY
 def _kernel_nodes(cu, graph: "torch.cuda.CUDAGraph") -> Tuple[int, list]:
     """(nodes, the kernel nodes' handles) of a graph captured with
     ``keep_graph=True``, read from its ``cudaGraph_t``."""
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    return _nodes_of(cu, ctypes.c_void_p(graph.raw_cuda_graph()))
+
+
+def _nodes_of(cu, handle: ctypes.c_void_p, kinds=None) -> Tuple[int, list]:
+    """(nodes, the kernel nodes' handles) of the ``CUgraph`` ``handle``.
+    ``kinds``, a dict of node handle to its type, is consulted and filled
+    in, so a graph read again and again has each node's type asked once."""
     n = ctypes.c_size_t(0)
     if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
         raise RuntimeError("cuGraphGetNodes failed")
@@ -47,13 +54,35 @@ def _kernel_nodes(cu, graph: "torch.cuda.CUDAGraph") -> Tuple[int, list]:
     if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
         raise RuntimeError("cuGraphGetNodes failed")
     kind, kernels = ctypes.c_int(0), []
+    kinds = {} if kinds is None else kinds
     for node in nodes:
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                 ctypes.byref(kind)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        if kind.value == 0:                         # CU_GRAPH_NODE_TYPE_KERNEL
+        if node not in kinds:
+            if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) != 0:
+                raise RuntimeError("cuGraphNodeGetType failed")
+            kinds[node] = kind.value
+        if kinds[node] == 0:                        # CU_GRAPH_NODE_TYPE_KERNEL
             kernels.append(node)
     return n.value, kernels
+
+
+def capture_kernel_nodes():
+    """A function that returns the kernel nodes (a set of handles) that
+    the graph being captured on the current stream holds so far, read
+    with ``cuStreamGetCaptureInfo``: a ``spans.NodeTally``'s ``read``.
+    Call it, and the function, while the capture runs."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    status, graph = ctypes.c_int(0), ctypes.c_void_p(0)
+    kinds: Dict[int, int] = {}
+
+    def read() -> set:
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if cu.cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), None,
+                                        ctypes.byref(graph), None,
+                                        None) != 0 or status.value != 1:
+            raise RuntimeError("the current stream is not capturing a graph")
+        return set(_nodes_of(cu, graph, kinds)[1])
+    return read
 
 
 def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Tuple[int, int]:
@@ -144,9 +173,16 @@ def _captured(stream: "torch.cuda.Stream", fn, pool=None, generators=()):
     """``fn()`` captured on ``stream`` into a new graph (in ``pool`` if
     given), kept for :func:`graph_nodes` and instantiated.  Returns (graph,
     what ``fn`` returned, the seconds taken).  An op that cannot be
-    captured raises its own error.  The capture is thread-local: the
-    autograd engine's device thread, which runs a train step's backward,
-    queues its kernels on the capturing stream and is captured too.
+    captured raises its own error; the device's default generator and
+    ``generators``, which the failed capture leaves in its capturing
+    state, are given back their seed and offset outside any capture
+    (:func:`_restore_generators`), so they draw again.  The capture is
+    thread-local: the autograd engine's device thread, which runs a train
+    step's backward, queues its kernels on the capturing stream and is
+    captured too.  Unreachable objects are collected first (as
+    ``torch.cuda.graph`` does): a graph freed while another captures, by
+    a collection that the capture's own allocations set off, invalidates
+    that capture.
 
     ``generators`` are the CUDA ``torch.Generator``s that ``fn`` draws
     from: each is registered with the graph, which then reads its seed and
@@ -157,6 +193,7 @@ def _captured(stream: "torch.cuda.Stream", fn, pool=None, generators=()):
     and ``graphs.instantiate``."""
     with REGISTRY.span("graphs.capture"):
         t0 = time.perf_counter()
+        gc.collect()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in generators:
             graph.register_generator_state(gen)
@@ -169,12 +206,26 @@ def _captured(stream: "torch.cuda.Stream", fn, pool=None, generators=()):
                 try:
                     graph.capture_end()
                 except RuntimeError:    # the error above invalidated it
-                    pass
+                    _restore_generators(stream.device, generators)
                 raise
             graph.capture_end()
         with REGISTRY.span("graphs.instantiate"):
             graph.instantiate()
         return graph, out, time.perf_counter() - t0
+
+
+def _restore_generators(dev: torch.device, generators=()) -> None:
+    """Gives the default generator of ``dev`` and ``generators`` a new
+    state that holds their seed and offset and is not capturing: a capture
+    that ends in an error never closes the states it opened, and a state
+    left open refuses to draw outside a capture."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    for gen in (torch.cuda.default_generators[index], *generators):
+        fresh = torch.Generator(device=dev)
+        fresh.manual_seed(gen.initial_seed())
+        fresh.set_offset(gen.get_offset())
+        gen.graphsafe_set_state(fresh.graphsafe_get_state())
 
 
 class _GraphCache:

@@ -19,7 +19,8 @@
 //           rotate-half formula with one rounding a product and a sum, as
 //           PyTorch's elementwise ops give it;
 //   cache[b, slot, g] = k and v, in the cache's type;
-//   s_rj  = (q_r . K_j) * (1 / sqrt(D)) over the keys j < valid, in fp32,
+//   s_rj  = (q_r . K_j) * scale (1 / sqrt(D) unless the caller gives one)
+//           over the keys j < valid, in fp32,
 //           K widened from the cache (the new key as rounded into it);
 //   p_rj  = exp(s_rj - max_j s_rj) / sum_j exp(...), rounded to the
 //           cache's type;
@@ -659,14 +660,14 @@ const char* decode_attention_error_string(int err) {
 // (b, s, hkv, d) contiguous in cache_type, updated in place at the slot;
 // length a 0-d int32 (len64 0) or int64 (len64 1) on the device; cos and
 // sin (cos_rows, d / 2) fp32 with cos_rows 1 or b, or null; ring 1 for a
-// sliding-window ring buffer.  Writes out (b, hkv * rep * d), bf16 where
-// both types are bf16, else fp32.
+// sliding-window ring buffer; scale the scores' factor, 0 for 1 / sqrt(d).
+// Writes out (b, hkv * rep * d), bf16 where both types are bf16, else fp32.
 int decode_attention_fwd(int cache_type, int q_type, const void* q,
                          const void* k, const void* v, void* k_cache,
                          void* v_cache, const void* length, int len64,
                          const void* cos, const void* sin, int cos_rows,
                          int ring, int b, int s, int hkv, int rep, int d,
-                         void* out, void* stream) {
+                         float scale, void* out, void* stream) {
   if (!shapes_ok(cache_type, q_type, b, s, hkv, rep, d) ||
       (cos != nullptr && cos_rows != 1 && cos_rows != b))
     return cudaErrorInvalidValue;
@@ -677,7 +678,9 @@ int decode_attention_fwd(int cache_type, int q_type, const void* q,
   args.sin = static_cast<const float*>(sin);
   args.out = out;
   // as PyTorch divides by a host scalar on the card: times its reciprocal
-  args.inv_sqrt_d = 1.0f / static_cast<float>(sqrt(static_cast<double>(d)));
+  args.inv_sqrt_d =
+      scale > 0.0f ? scale
+                   : 1.0f / static_cast<float>(sqrt(static_cast<double>(d)));
   args.q_bf16 = q_type == kBF16;
   args.len64 = len64, args.cos_rows = cos_rows, args.ring = ring;
   args.s = s, args.hkv = hkv, args.rep = rep, args.d = d;

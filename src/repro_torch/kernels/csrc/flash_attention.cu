@@ -6,7 +6,8 @@
 //
 // What it computes, for q (B,Sq,H,D) and k/v (B,Sk,Hkv,D) in the reference's
 // layout, query head h reading kv head h / (H/Hkv):
-//   s[i,j] = (q_i . k_j) / sqrt(D)   where kpos < Sk, and kpos <= qpos when
+//   s[i,j] = (q_i . k_j) * scale     (1 / sqrt(D) unless the caller gives
+//                                    one) where kpos < Sk, and kpos <= qpos when
 //                                    causal, and kpos > qpos - window when a
 //                                    window is given; -inf elsewhere
 //   o_i    = sum_j softmax(s_i)_j v_j, with an online softmax over key tiles;
@@ -386,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<kMaxD>::kMinBlocks)
 template <int kMaxD, bool kExact>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
                       int b, int sq, int sk, int h, int hkv, int d, int causal,
-                      int window, cudaStream_t stream) {
+                      int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(d, Cfg<kMaxD>::kKeys);
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32<kMaxD, kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -396,19 +397,19 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
   flash_f32<kMaxD, kExact><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, hkv, d,
-      causal, window, 1.0f / sqrtf(static_cast<float>(d)));
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 template <int kMaxD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
                    int sq, int sk, int h, int hkv, int d, int causal,
-                   int window, cudaStream_t stream) {
+                   int window, float scale, cudaStream_t stream) {
   if (d == kMaxD)
     return launch_as<kMaxD, true>(q, k, v, o, b, sq, sk, h, hkv, d, causal,
-                                  window, stream);
+                                  window, scale, stream);
   return launch_as<kMaxD, false>(q, k, v, o, b, sq, sk, h, hkv, d, causal,
-                                 window, stream);
+                                 window, scale, stream);
 }
 
 size_t smem_for(int d) {
@@ -418,13 +419,15 @@ size_t smem_for(int d) {
 
 cudaError_t by_width(const void* q, const void* k, const void* v, void* o,
                      int b, int sq, int sk, int h, int hkv, int d, int causal,
-                     int window, cudaStream_t stream) {
+                     int window, float scale, cudaStream_t stream) {
   if (d <= 64)
-    return launch<64>(q, k, v, o, b, sq, sk, h, hkv, d, causal, window, stream);
+    return launch<64>(q, k, v, o, b, sq, sk, h, hkv, d, causal, window, scale,
+                      stream);
   if (d <= 128)
     return launch<128>(q, k, v, o, b, sq, sk, h, hkv, d, causal, window,
-                       stream);
-  return launch<256>(q, k, v, o, b, sq, sk, h, hkv, d, causal, window, stream);
+                       scale, stream);
+  return launch<256>(q, k, v, o, b, sq, sk, h, hkv, d, causal, window, scale,
+                     stream);
 }
 
 }  // namespace f32
@@ -1100,7 +1103,7 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
 
 template <int kD, int kBN>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
-           int sk, int h, int hkv, int d, int causal, int window,
+           int sk, int h, int hkv, int d, int causal, int window, float scale,
            cudaStream_t stream) {
   const size_t smem = Cfg<kD, kBN>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1123,7 +1126,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
   const int grid = n_work < sms ? n_work : sms;
   flash_bf16<kD, kBN><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, h, hkv, d, causal,
-      window, 1.0f / sqrtf(static_cast<float>(d)), n_qt, n_work);
+      window, scale, n_qt, n_work);
   return cudaGetLastError();
 }
 
@@ -1136,18 +1139,18 @@ size_t smem_for(int d) {
 
 int by_width(const void* q, const void* k, const void* v, void* o, int b,
              int sq, int sk, int h, int hkv, int d, int causal, int window,
-             cudaStream_t stream) {
+             float scale, cudaStream_t stream) {
   if (d <= 64)
     return launch<64, 128>(q, k, v, o, b, sq, sk, h, hkv, d, causal,
-                               window, stream);
+                               window, scale, stream);
   if (d <= 128)
     return launch<128, 128>(q, k, v, o, b, sq, sk, h, hkv, d, causal, window,
-                            stream);
+                            scale, stream);
   if (d <= 192)
     return launch<192, 64>(q, k, v, o, b, sq, sk, h, hkv, d, causal, window,
-                           stream);
+                           scale, stream);
   return launch<256, 64>(q, k, v, o, b, sq, sk, h, hkv, d, causal, window,
-                         stream);
+                         scale, stream);
 }
 
 }  // namespace bf16
@@ -1171,19 +1174,22 @@ const char* flash_error_string(int err) {
 
 // o (b, sq, h, d) = attention of q (b, sq, h, d) over k/v (b, sk, hkv, d),
 // all contiguous and of one type (0 fp32, 1 bf16); d a multiple of 16 up to
-// 256; window <= 0 means no window.
+// 256; window <= 0 means no window; the scores times scale, 0 for
+// 1 / sqrt(d).
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                         void* o, int b, int sq, int sk, int h, int hkv, int d,
-                        int causal, int window, void* stream) {
+                        int causal, int window, float scale, void* stream) {
   if (d <= 0 || d > 256 || d % 16 != 0 || hkv <= 0 || h % hkv != 0)
     return cudaErrorInvalidValue;
+  if (!(scale > 0.0f)) scale = 1.0f / sqrtf(static_cast<float>(d));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return f32::by_width(q, k, v, o, b, sq, sk, h, hkv, d, causal, window, s);
+      return f32::by_width(q, k, v, o, b, sq, sk, h, hkv, d, causal, window,
+                           scale, s);
     case kBF16:
       return bf16::by_width(q, k, v, o, b, sq, sk, h, hkv, d, causal, window,
-                            s);
+                            scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -62,7 +62,7 @@ def out_dtype(q_dtype, cache_dtype) -> torch.dtype:
     return torch.promote_types(cache_dtype, q_dtype)
 
 
-def _check(q, k, v, k_cache, v_cache, length, cos, sin) -> None:
+def _check(q, k, v, k_cache, v_cache, length, cos, sin, scale=None) -> None:
     tensors = (q, k, v, k_cache, v_cache, length, cos, sin)
     if any(_is_dtensor(t) for t in tensors):
         raise TypeError("decode attention takes plain tensors, not DTensors: "
@@ -93,6 +93,8 @@ def _check(q, k, v, k_cache, v_cache, length, cos, sin) -> None:
                         f"{k_cache.dtype}, {v_cache.dtype}")
     if (cos is None) != (sin is None):
         raise ValueError("cos and sin go together")
+    if scale is not None and not scale > 0:
+        raise ValueError(f"scale must be positive, got {scale}")
     if cos is not None and (cos.shape[-1] != d // 2 or cos.numel() not in
                             (d // 2, b * d // 2) or sin.shape != cos.shape):
         raise ValueError(f"cos/sin {tuple(cos.shape)} must hold 1 or {b} rows "
@@ -125,10 +127,12 @@ def _rope(x, cos, sin):
                      dim=-1).to(x.dtype)
 
 
-def plain(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool):
+def plain(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool,
+          scale=None):
     """The kernel's arithmetic in PyTorch ops, over the valid keys only
     (the position is read on the host): the rope, the slot written in
-    place, fp32 scores over the widened cache divided by √D, the softmax
+    place, fp32 scores over the widened cache divided by √D (or times
+    ``scale``), the softmax
     in fp32 rounded to the cache's type, p·v summed in fp32 and rounded to
     the cache's type.  Returns (B, 1, H·D) in :func:`out_dtype`."""
     b, h, d = q.shape
@@ -143,8 +147,8 @@ def plain(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool):
     k_cache[:, widx] = k.to(k_cache.dtype)
     v_cache[:, widx] = v.to(v_cache.dtype)
     qg = q.float().reshape(b, hkv, rep, d)
-    scores = torch.einsum("bgrd,bkgd->bgrk", qg,
-                          k_cache[:, :valid].float()) / math.sqrt(d)
+    scores = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache[:, :valid].float())
+    scores = scores / math.sqrt(d) if scale is None else scores * scale
     p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     o = torch.einsum("bgrk,bkgd->bgrd", p.float(),
                      v_cache[:, :valid].float()).to(v_cache.dtype)
@@ -159,7 +163,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.decode_attention_error_string.argtypes = [i]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     lib.decode_attention_fwd.argtypes = [i, i, p, p, p, p, p, p, i, p, p, i,
-                                         i, i, i, i, i, i, p, p]
+                                         i, i, i, i, i, i, ctypes.c_float, p,
+                                         p]
     lib.decode_attention_fwd.restype = i
     return lib
 
@@ -179,16 +184,20 @@ def _plan(cache_code: int, q_code: int, b: int, s: int, hkv: int, rep: int,
     return smem, cluster.value
 
 
-def launch(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool):
+def launch(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool,
+           scale=None):
     """Launch the kernel on CUDA inputs (counted in :data:`LAUNCHES`);
     returns what :func:`plain` returns, and updates the caches in place.
     ``length`` is a 0-d int32 or int64 tensor on the card (an int is
-    copied there)."""
-    _check(q, k, v, k_cache, v_cache, length, cos, sin)
-    return _launch(q, k, v, k_cache, v_cache, length, cos, sin, ring=ring)
+    copied there); ``scale`` None passes 0, for which the kernel takes
+    1/√D itself."""
+    _check(q, k, v, k_cache, v_cache, length, cos, sin, scale)
+    return _launch(q, k, v, k_cache, v_cache, length, cos, sin, ring=ring,
+                   scale=scale)
 
 
-def _launch(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool):
+def _launch(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool,
+            scale=None):
     """:func:`launch` on inputs :func:`_check` has passed."""
     dev = q.device
     if dev.type != "cuda":
@@ -233,7 +242,8 @@ def _launch(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool):
             None if cos is None else cos.data_ptr(),
             None if sin is None else sin.data_ptr(),
             0 if cos is None else cos.shape[0], int(ring), b, s, hkv,
-            h // hkv, d, out.data_ptr(), stream)
+            h // hkv, d, 0.0 if scale is None else float(scale),
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"decode-attention kernel launch failed: CUDA error {err} "
@@ -243,16 +253,18 @@ def _launch(q, k, v, k_cache, v_cache, length, cos, sin, *, ring: bool):
 
 
 def decode_attention(q, k, v, k_cache, v_cache, length, cos, sin, *,
-                     ring: bool):
+                     ring: bool, scale=None):
     """q (B,H,D), k/v (B,Hkv,D) unroped; caches (B,S,Hkv,D), written at
     the slot in place; ``length`` the position (an int or a 0-d tensor);
-    cos/sin (1 or B, …, D/2) or None -> (B,1,H·D)."""
-    _check(q, k, v, k_cache, v_cache, length, cos, sin)
+    cos/sin (1 or B, …, D/2) or None; scores times ``scale`` (None: 1/√D)
+    -> (B,1,H·D)."""
+    _check(q, k, v, k_cache, v_cache, length, cos, sin, scale)
     dev = q.device.type
     if dev == "cpu":
-        return plain(q, k, v, k_cache, v_cache, length, cos, sin, ring=ring)
+        return plain(q, k, v, k_cache, v_cache, length, cos, sin, ring=ring,
+                     scale=scale)
     if dev == "cuda":
         return _launch(q, k, v, k_cache, v_cache, length, cos, sin,
-                       ring=ring)
+                       ring=ring, scale=scale)
     raise ValueError(f"decode attention runs on CPU (plain version) or CUDA "
                      f"tensors, got {q.device}")

@@ -75,16 +75,19 @@ def _check(q, k, v, window) -> None:
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool = True, window: Optional[int] = None,
           block_k: int = PLAIN_BLOCK_K,
-          pv_type: torch.dtype = torch.float32) -> torch.Tensor:
+          pv_type: torch.dtype = torch.float32,
+          scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch ops: an fp32 online softmax over
     key blocks of ``block_k``, GQA by grouping the query heads (no repeated
-    k/v), the reference's masks and its fully-masked-row guards.  The
-    softmax and v meet in ``pv_type``: fp32 for the kernel, v's type for
-    the model's chunked attention, as the reference's does."""
+    k/v), the reference's masks and its fully-masked-row guards; the
+    scores times ``scale`` (None: 1/√D).  The softmax and v meet in
+    ``pv_type``: fp32 for the kernel, v's type for the model's chunked
+    attention, as the reference's does."""
     b, sq, h, d = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     rep = h // hkv
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     qg = q.float().reshape(b, sq, hkv, rep, d)
     qpos = torch.arange(sq, device=q.device)[:, None]
     m = torch.full((b, hkv, rep, sq), float("-inf"), device=q.device)
@@ -123,7 +126,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_error_string.argtypes = [i]
     lib.flash_error_string.restype = ctypes.c_char_p
     lib.flash_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i,
-                                        p]
+                                        ctypes.c_float, p]
     lib.flash_attention_fwd.restype = i
     return lib
 
@@ -134,9 +137,11 @@ def _library() -> ctypes.CDLL:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+           causal: bool = True, window: Optional[int] = None,
+           scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel on CUDA inputs (counted in :data:`LAUNCHES`);
-    returns what :func:`plain` returns."""
+    returns what :func:`plain` returns.  ``scale`` None passes 0, for
+    which the kernel takes 1/√D itself."""
     _check(q, k, v, window)
     dev = q.device
     if dev.type != "cuda":
@@ -162,7 +167,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, sq, sk, h, hkv, d, int(causal),
-            0 if window is None else int(window), stream)
+            0 if window is None else int(window),
+            0.0 if scale is None else float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA error "
                            f"{err} ({lib.flash_error_string(err).decode()})")
@@ -171,14 +177,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B,Sq,H,D); k/v (B,Sk,Hkv,D) -> (B,Sq,H,D) in q's type."""
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,Sq,H,D); k/v (B,Sk,Hkv,D) -> (B,Sq,H,D) in q's type; scores
+    times ``scale`` (None: 1/√D)."""
     _check(q, k, v, window)
+    if scale is not None and not scale > 0:
+        raise ValueError(f"scale must be positive, got {scale}")
     dev = q.device.type
     if dev == "cpu":
-        return plain(q, k, v, causal=causal, window=window)
+        return plain(q, k, v, causal=causal, window=window, scale=scale)
     if dev == "cuda":
-        return launch(q, k, v, causal=causal, window=window)
+        return launch(q, k, v, causal=causal, window=window, scale=scale)
     raise ValueError(f"flash attention runs on CPU (plain version) or CUDA "
                      f"tensors, got {q.device}")

@@ -19,18 +19,20 @@ from repro_torch.kernels.kmeans import kmeans_assign_update as _kmeans_fused
 from repro_torch.kernels.ssd import ssd_chunk_scan as _ssd
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None):
-    """q (B,Sq,H,D); k/v (B,Sk,Hkv,D) -> (B,Sq,H,D)."""
-    return _flash(q, k, v, causal=causal, window=window)
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    scale=None):
+    """q (B,Sq,H,D); k/v (B,Sk,Hkv,D) -> (B,Sq,H,D); scores times
+    ``scale`` (None: 1/√D)."""
+    return _flash(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def decode_attention(q, k, v, k_cache, v_cache, length, cos, sin, *,
-                     ring: bool):
+                     ring: bool, scale=None):
     """One decode step's attention core: q (B,H,D), k/v (B,Hkv,D) unroped,
     caches (B,S,Hkv,D) written at the position's slot in place ->
-    (B,1,H·D)."""
+    (B,1,H·D); scores times ``scale`` (None: 1/√D)."""
     return _decode_attention(q, k, v, k_cache, v_cache, length, cos, sin,
-                             ring=ring)
+                             ring=ring, scale=scale)
 
 
 def kmeans_assign(points, centroids, *, precision: str = "fp32",

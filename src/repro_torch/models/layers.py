@@ -11,7 +11,12 @@
 * FFN: SwiGLU / squared-ReLU / GELU (tanh approximation, as
   ``jax.nn.gelu``);
 * MoE: top-k router with scatter-based capacity dispatch (and arctic's
-  parallel dense residual).
+  parallel dense residual, granite's shared expert); a layer may hold only
+  a share of the experts its router scores (``MoEConfig.experts_held``)
+  and route dropless, and :func:`counting` counts its routed pairs and
+  rows;
+* GQA attention's scores times ``cfg.attention_multiplier`` where one is
+  given (granite), else divided by √D.
 
 Params are plain dicts of tensors with the reference's names and shapes;
 initializers live next to the forward functions and take an explicit
@@ -30,8 +35,10 @@ reference's ``mla_forward`` does, so its ``"kernel"`` is dense too.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +48,7 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attention import ring_slot
 from repro_torch.kernels import ssd as kssd
+from repro_torch.spans import region
 
 IMPLS = ("dense", "chunked", "kernel")
 
@@ -404,14 +412,22 @@ def _repeat_kv(k, n_rep: int):
         b, s, h * n_rep, d)
 
 
-def attention_dense(q, k, v, *, causal=True, window=None, q_offset=0):
-    """Reference O(S^2)-memory attention. q (B,Sq,H,D), k/v (B,Sk,Hkv,D)."""
+def _scaled(scores, d: int, scale):
+    """Scores times ``scale``; None divides by √d, as every architecture
+    but those with an attention multiplier does."""
+    return scores / math.sqrt(d) if scale is None else scores * scale
+
+
+def attention_dense(q, k, v, *, causal=True, window=None, q_offset=0,
+                    scale=None):
+    """Reference O(S^2)-memory attention. q (B,Sq,H,D), k/v (B,Sk,Hkv,D);
+    scores times ``scale`` (None: 1/√D)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     k = _repeat_kv(k, h // k.shape[2])
     v = _repeat_kv(v, h // v.shape[2])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    scores = scores / math.sqrt(d)
+    scores = _scaled(scores, d, scale)
     qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(sk, device=q.device)
     if causal:
@@ -426,7 +442,7 @@ def attention_dense(q, k, v, *, causal=True, window=None, q_offset=0):
 
 
 def attention_chunked(q, k, v, *, causal=True, window=None,
-                      chunk_q=1024, chunk_k=1024):
+                      chunk_q=1024, chunk_k=1024, scale=None):
     """Flash-style chunked attention in torch ops: the flash kernel's
     plain version over key blocks of ``chunk_k``, the softmax cast to v's
     type before its product with v, as in the reference.
@@ -437,13 +453,14 @@ def attention_chunked(q, k, v, *, causal=True, window=None,
     s, sk = q.shape[1], k.shape[1]
     assert s % chunk_q == 0 and sk % chunk_k == 0, (s, sk, chunk_q, chunk_k)
     return kfa.plain(q, k, v, causal=causal, window=window, block_k=chunk_k,
-                     pv_type=v.dtype)
+                     pv_type=v.dtype, scale=scale)
 
 
-def attention_decode(q, k_cache, v_cache, valid_len):
+def attention_decode(q, k_cache, v_cache, valid_len, scale=None):
     """Single-token decode. q (B,1,H,D); caches (B,Smax,Hkv,D); valid_len =
     number of valid cache entries (the new token is already written), an
-    int or a 0-d tensor on the device.
+    int or a 0-d tensor on the device; scores times ``scale`` (None:
+    1/√D).
 
     GQA is computed grouped, q (B,1,Hkv,rep,D) against the raw cache.  As
     in the reference, the scores are fp32 (the cache is upcast) and the
@@ -458,7 +475,7 @@ def attention_decode(q, k_cache, v_cache, valid_len):
         q = _gathered(q, 2)
     qg = q.reshape(b, 1, hkv, rep, d)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k_cache.float())
-    scores = scores / math.sqrt(d)
+    scores = _scaled(scores, d, scale)
     kpos = torch.arange(smax, device=q.device)
     scores = scores.masked_fill(~(kpos < valid_len), float("-inf"))
     p = torch.softmax(scores, dim=-1)
@@ -494,13 +511,16 @@ def gqa_forward(p, x, cos, sin, cfg: ArchConfig, *, impl="dense",
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    scale = cfg.attention_multiplier
     if impl == "dense":
-        o = _attend(attention_dense, q, k, v, causal=True, window=window)
+        o = _attend(attention_dense, q, k, v, causal=True, window=window,
+                    scale=scale)
     elif impl == "chunked":
         o = _attend(attention_chunked, q, k, v, causal=True, window=window,
-                    chunk_q=min(chunk, s), chunk_k=min(chunk, s))
+                    chunk_q=min(chunk, s), chunk_k=min(chunk, s), scale=scale)
     elif impl == "kernel":
-        o = kops.flash_attention(q, k, v, causal=True, window=window)
+        o = kops.flash_attention(q, k, v, causal=True, window=window,
+                                 scale=scale)
     else:
         raise ValueError(impl)
     return merge_heads(o, b, s, h * hd) @ p["wo"], (k, v)
@@ -527,7 +547,8 @@ def gqa_decode(p, x, cache_k, cache_v, length, cos, sin, cfg: ArchConfig,
     ring = cfg.sliding_window is not None
     if impl == "kernel":
         o = kops.decode_attention(q[:, 0], k[:, 0], v[:, 0], cache_k,
-                                  cache_v, length, cos, sin, ring=ring)
+                                  cache_v, length, cos, sin, ring=ring,
+                                  scale=cfg.attention_multiplier)
         o = o.to(torch.promote_types(cache_v.dtype, p["wo"].dtype))
         return o @ p["wo"], cache_k, cache_v
     if impl != "dense":
@@ -539,7 +560,8 @@ def gqa_decode(p, x, cache_k, cache_v, length, cos, sin, cfg: ArchConfig,
         k = apply_rope(k, cos, sin)
     write_slot(cache_k, write_idx, k[:, 0])
     write_slot(cache_v, write_idx, v[:, 0])
-    o = attention_decode(q, cache_k, cache_v, valid_len)
+    o = attention_decode(q, cache_k, cache_v, valid_len,
+                         cfg.attention_multiplier)
     o = merge_heads(o, b, 1, h * hd).to(torch.promote_types(o.dtype,
                                                         p["wo"].dtype))
     return o @ p["wo"], cache_k, cache_v
@@ -687,17 +709,19 @@ def ffn_forward(p, x, kind: str):
 
 
 def moe_init(generator, cfg: ArchConfig, dtype, device):
-    """The router is fp32 whatever ``dtype``, as in the reference."""
+    """The router is fp32 whatever ``dtype``, as in the reference; it
+    scores every expert, and the expert stacks hold the ``moe.held``
+    experts this layer computes."""
     m, d = cfg.moe, cfg.d_model
     out_scale = 0.02 / math.sqrt(2.0 * cfg.n_layers)
     p = {
         "router": _init(generator, (d, m.n_experts), 0.02, torch.float32,
                         device),
-        "w_gate": _init(generator, (m.n_experts, d, m.d_expert), 0.02, dtype,
+        "w_gate": _init(generator, (m.held, d, m.d_expert), 0.02, dtype,
                         device),
-        "w_up": _init(generator, (m.n_experts, d, m.d_expert), 0.02, dtype,
+        "w_up": _init(generator, (m.held, d, m.d_expert), 0.02, dtype,
                       device),
-        "w_down": _init(generator, (m.n_experts, m.d_expert, d), out_scale,
+        "w_down": _init(generator, (m.held, m.d_expert, d), out_scale,
                         dtype, device),
     }
     if m.dense_residual:
@@ -706,7 +730,12 @@ def moe_init(generator, cfg: ArchConfig, dtype, device):
 
 
 def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Rows an expert takes from ``n_tokens`` tokens: all of them where
+    the layer is dropless (a token's top-k experts are distinct, so none
+    is dropped), else the capacity factor's share, at least 8."""
     m = cfg.moe
+    if m.dropless:
+        return n_tokens
     c = int(m.capacity_factor * n_tokens * m.top_k / m.n_experts)
     return max(8, -(-c // 8) * 8)          # round up to multiple of 8
 
@@ -729,6 +758,28 @@ def _dispatch_positions(flat_ids, n_experts: int):
     csum = torch.cumsum(oh, dim=-2, dtype=torch.int32)        # inclusive
     pos = torch.gather(csum, -1, flat_ids.long()[..., None])[..., 0] - 1
     return pos.to(torch.int32)
+
+
+_COUNTING = threading.local()
+
+
+def moe_counter():
+    """The counter :func:`counting` installed on this thread, or None."""
+    return getattr(_COUNTING, "counter", None)
+
+
+@contextlib.contextmanager
+def counting(counter):
+    """Installs ``counter``, a 0-d int64 tensor (None: nothing is
+    counted), on this thread until the block ends: each expert layer adds
+    to it, on the device, the (token, held expert) pairs it routes, so a
+    step captured under it adds them at every replay."""
+    was = moe_counter()
+    _COUNTING.counter = counter
+    try:
+        yield counter
+    finally:
+        _COUNTING.counter = was
 
 
 def moe_route(p, xf, top_k: int):
@@ -783,21 +834,27 @@ def _constrain(shard_experts, buf):
 
 def _moe_dispatch(router, x, cfg: ArchConfig, groups: int):
     """Route ``groups`` groups of x's tokens and scatter them into one
-    (G, E, C, D) capacity buffer.  Returns (buffer, flat slot of each
-    (token, j) in a flat (G·(E·C + 1), D) buffer, gates, and the router's
-    statistics: the mean of ``probs`` over the tokens, the share of
-    first choices per expert, the mean squared log-sum-exp and the share
-    of kept slots)."""
+    (G, E, C, D) capacity buffer of the E = ``moe.held`` experts the layer
+    holds (a (token, j) sent to an absent expert is dropped as one past
+    capacity is).  Returns (buffer, flat slot of each (token, j) in a flat
+    (G·(E·C + 1), D) buffer, gates, and the router's statistics: the mean
+    of ``probs`` over the tokens, the share of first choices per expert,
+    the mean squared log-sum-exp and the share of kept slots), and the
+    kept (token, j) pairs, a 0-d int64 tensor."""
     m = cfg.moe
     b, s, d = x.shape
-    g, e, k = groups, m.n_experts, m.top_k
+    g, e, k = groups, m.held, m.top_k
     tg = b * s // g
     xf = x.reshape(g, tg, d)
     logits, probs, gate, ids = moe_route({"router": router}, xf, k)
 
     cap = moe_capacity(cfg, tg)
-    pos = _dispatch_positions(ids.reshape(g, tg * k), e).reshape(g, tg, k)
+    pos = _dispatch_positions(ids.reshape(g, tg * k),
+                              m.n_experts).reshape(g, tg, k)
     keep = pos < cap
+    if e < m.n_experts:
+        keep = keep & (ids < e)
+    kept = keep.sum()
     slot = torch.where(keep, ids * cap + pos, e * cap)
     rows = e * cap + 1
     # one flat buffer; group i's rows start at i · rows
@@ -808,10 +865,10 @@ def _moe_dispatch(router, x, cfg: ArchConfig, groups: int):
         buf.index_copy_(0, flat[:, :, j].reshape(-1), src)
     eb = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d)
     stats = (probs.mean((0, 1)),                             # (E,)
-             _one_hot(ids[..., 0], e).float().mean((0, 1)),
+             _one_hot(ids[..., 0], m.n_experts).float().mean((0, 1)),
              torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
-             keep.float().mean())
-    return eb, flat, gate, stats
+             kept / keep.numel())
+    return eb, flat, gate, stats, kept
 
 
 def _moe_combine(out, flat, gate, shape, dtype):
@@ -859,7 +916,8 @@ def _moe_local(x, router, groups: int):
         # every rank's share (a Partial("avg") output's would not be
         # scaled by 1/n)
         def local(xl, r):
-            eb, flat, gate, stats = _moe_dispatch(r, xl, cfg, local_groups)
+            eb, flat, gate, stats, _ = _moe_dispatch(r, xl, cfg,
+                                                     local_groups)
             return (eb, flat, gate, *(st[None] for st in stats))
 
         eb, flat, gate, *stats = local_map(
@@ -894,32 +952,43 @@ def _moe_forward_grouped(p, x, cfg: ArchConfig, shard_experts, groups: int):
     groups under ``local_map`` (:func:`_moe_local`), DTensor having no
     sharding strategy for the top-k sort, the cumsum and the scatter;
     the expert products between them run on the experts' model shards as
-    the buffer's constraint lays them out."""
-    m = cfg.moe
-    if is_dtensor(x):
-        dispatch, combine = _moe_local(x, p["router"], groups)
-        eb, flat, gate, stats = dispatch(cfg)
-    else:
-        eb, flat, gate, stats = _moe_dispatch(p["router"], x, cfg, groups)
-    eb = _constrain(shard_experts, eb)
-    hg = torch.einsum("gecd,edf->gecf", eb, p["w_gate"])
-    hu = torch.einsum("gecd,edf->gecf", eb, p["w_up"])
-    out = _constrain(shard_experts, torch.einsum(
-        "gecf,efd->gecd", silu(hg) * hu, p["w_down"]))
-    if is_dtensor(x):
-        y = combine(out, flat, gate)
-    else:
-        y = _moe_combine(out, flat, gate, x.shape, x.dtype)
+    the buffer's constraint lays them out.
 
-    # aux losses: switch load-balance + router z-loss
-    me, ce, z, kept = stats
-    aux = {
-        "lb_loss": m.router_aux_coef * m.n_experts * torch.sum(me * ce),
-        "z_loss": m.router_z_coef * z,
-        "dropped_frac": 1.0 - kept,
-    }
+    Under :func:`counting` a plain tensor's kept (token, slot) pairs are
+    added to the counter after the layer's regions (a ``DTensor``'s are
+    not counted)."""
+    m = cfg.moe
+    with region("moe.route"):
+        if is_dtensor(x):
+            dispatch, combine = _moe_local(x, p["router"], groups)
+            eb, flat, gate, stats = dispatch(cfg)
+            routed = None
+        else:
+            eb, flat, gate, stats, routed = _moe_dispatch(p["router"], x,
+                                                          cfg, groups)
+        # aux losses: switch load-balance + router z-loss
+        me, ce, z, kept = stats
+        aux = {
+            "lb_loss": m.router_aux_coef * m.n_experts * torch.sum(me * ce),
+            "z_loss": m.router_z_coef * z,
+            "dropped_frac": 1.0 - kept,
+        }
+    with region("moe.experts"):
+        eb = _constrain(shard_experts, eb)
+        hg = torch.einsum("gecd,edf->gecf", eb, p["w_gate"])
+        hu = torch.einsum("gecd,edf->gecf", eb, p["w_up"])
+        out = _constrain(shard_experts, torch.einsum(
+            "gecf,efd->gecd", silu(hg) * hu, p["w_down"]))
+        if is_dtensor(x):
+            y = combine(out, flat, gate)
+        else:
+            y = _moe_combine(out, flat, gate, x.shape, x.dtype)
     if m.dense_residual:
-        y = y + ffn_forward(p["dense"], x, cfg.ffn_kind)
+        with region("moe.shared"):
+            y = y + ffn_forward(p["dense"], x, cfg.ffn_kind)
+    counter = moe_counter()
+    if counter is not None and routed is not None:
+        counter.add_(routed)        # outside the regions: no layer's work
     return y, aux
 
 

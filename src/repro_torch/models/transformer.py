@@ -1,7 +1,11 @@
 """The decoder of the zoo, in PyTorch: the counterpart of
 ``repro.models.transformer`` for all ten architectures (attention kinds
 ``gqa``, ``mla``, ``hybrid`` and ``none``; a dense FFN or MoE; token,
-codebook or embedding inputs; RoPE, M-RoPE or none).
+codebook or embedding inputs; RoPE, M-RoPE or none), and beyond the
+reference, attention kind ``pattern`` (granite-4.0-h-small): each layer's
+mixer from ``cfg.layer_types`` (GQA or Mamba2, each followed by the MoE),
+the cache's entries stacking only the layers that have them, and the
+embedding, residual and logit multipliers.
 
 * The reference's ``lax.scan`` over stacked layer params becomes a Python
   loop over ``params["blocks"]``, a list of one dict a layer.
@@ -44,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.spans import region
 
 
 def default_device(device=None) -> torch.device:
@@ -137,18 +142,19 @@ def _expert_constraint(rules):
 # ---------------------------------------------------------------------------
 
 
-def _block_init(generator, cfg: ArchConfig, dtype, device):
+def _block_init(generator, cfg: ArchConfig, dtype, device, layer: int):
+    kind = cfg.mixer(layer)
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
-    if cfg.attn_kind == "gqa":
+    if kind == "gqa":
         p["attn"] = L.gqa_init(generator, cfg, dtype, device)
-    elif cfg.attn_kind == "mla":
+    elif kind == "mla":
         p["attn"] = L.mla_init(generator, cfg, dtype, device)
-    elif cfg.attn_kind == "hybrid":
+    elif kind == "hybrid":
         p["mixer"] = L.hybrid_init(generator, cfg, dtype, device)
-    elif cfg.attn_kind == "none":
+    elif kind == "none":
         p["ssm"] = L.ssm_init(generator, cfg, dtype, device)
     else:
-        raise ValueError(cfg.attn_kind)
+        raise ValueError(kind)
     if cfg.moe is not None:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
         p["moe"] = L.moe_init(generator, cfg, dtype, device)
@@ -189,8 +195,8 @@ def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator]
         head = L._init(generator, shape, 0.02, dtype, device)
         head[..., cfg.vocab_size:] = 0.0        # pad cols -> pad logits == 0
         params["head"] = head
-    params["blocks"] = [_block_init(generator, cfg, dtype, device)
-                        for _ in range(cfg.n_layers)]
+    params["blocks"] = [_block_init(generator, cfg, dtype, device, i)
+                        for i in range(cfg.n_layers)]
     return params
 
 
@@ -215,6 +221,10 @@ def param_count(params) -> int:
 
 
 def _block_pspecs(cfg: ArchConfig, r: ShardRules):
+    if cfg.attn_kind == "pattern":
+        raise NotImplementedError(
+            f"{cfg.name}: blocks of a per-layer pattern do not stack into "
+            f"one spec tree")
     m, f = r.model, r.fsdp
     rep1 = P(None, None)                       # stacked (L, d) norms
     p = {"ln1": rep1}
@@ -297,21 +307,28 @@ def _embed_inputs(params, cfg: ArchConfig, inputs):
     # fixed order, where indexing's (index_put_ with accumulate) does not
     tok = inputs["tokens"]
     if cfg.n_codebooks == 1:
-        return L.embedding(tok, params["embed"])
-    # musicgen: (B,S,K) codebook ids, summed embeddings
-    out = L.embedding(tok[..., 0], params["embed"][0])
-    for k in range(1, cfg.n_codebooks):
-        out = out + L.embedding(tok[..., k], params["embed"][k])
-    return out
+        x = L.embedding(tok, params["embed"])
+    else:
+        # musicgen: (B,S,K) codebook ids, summed embeddings
+        x = L.embedding(tok[..., 0], params["embed"][0])
+        for k in range(1, cfg.n_codebooks):
+            x = x + L.embedding(tok[..., k], params["embed"][k])
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
 
 
 def _logits(params, cfg: ArchConfig, x, rules=None):
     if cfg.tie_embeddings or cfg.n_codebooks == 1:
         logits = (x @ params["embed"].T if cfg.tie_embeddings
                   else x @ params["head"])
-        return _c(rules, logits, (rules.batch if rules else None), None,
-                  (rules.model if rules else None))
-    return L.codebook_logits(x, params["head"])
+        logits = _c(rules, logits, (rules.batch if rules else None), None,
+                    (rules.model if rules else None))
+    else:
+        logits = L.codebook_logits(x, params["head"])
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def _positions_cos_sin(cfg: ArchConfig, inputs, seq_len: int,
@@ -331,6 +348,13 @@ def _rope_dim(cfg: ArchConfig) -> int:
             else cfg.head_dim)
 
 
+def _residual(x, y, cfg: ArchConfig):
+    """``x + y``, y times the residual multiplier where there is one."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return x + y
+
+
 def _ffn(lp, x, cfg: ArchConfig, rules=None):
     """The block's second half: (x, aux) with MoE's aux losses, else {}."""
     if cfg.moe is not None:
@@ -339,11 +363,15 @@ def _ffn(lp, x, cfg: ArchConfig, rules=None):
             lp["moe"], h2, cfg,
             shard_experts=(_expert_constraint(rules) if rules else None),
             groups=(rules.moe_groups if rules else 1))
-        return x + y, aux
+        return _residual(x, y, cfg), aux
     if cfg.d_ff:
         h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind)
+        x = _residual(x, L.ffn_forward(lp["ffn"], h2, cfg.ffn_kind), cfg)
     return x, {}
+
+
+def _has_ffn(cfg: ArchConfig) -> bool:
+    return cfg.moe is not None or bool(cfg.d_ff)
 
 
 def _act_spec(rules):
@@ -352,22 +380,26 @@ def _act_spec(rules):
             None)
 
 
-def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, impl, chunk,
-                  rules: Optional[ShardRules] = None):
-    """One decoder block. Returns (x, aux_dict)."""
+def block_forward(lp, x, cos, sin, cfg: ArchConfig, *, layer: int, impl,
+                  chunk, rules: Optional[ShardRules] = None):
+    """Decoder block ``layer``. Returns (x, aux_dict)."""
+    kind = cfg.mixer(layer)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if cfg.attn_kind == "gqa":
+    if kind == "gqa":
         a, _ = L.gqa_forward(lp["attn"], h, cos, sin, cfg, impl=impl,
                              window=cfg.sliding_window, chunk=chunk)
-    elif cfg.attn_kind == "mla":
+    elif kind == "mla":
         a, _ = L.mla_forward(lp["attn"], h, cos, sin, cfg, impl=impl,
                              chunk=chunk)
-    elif cfg.attn_kind == "hybrid":
+    elif kind == "hybrid":
         a, _ = L.hybrid_forward(lp["mixer"], h, cos, sin, cfg, impl=impl,
                                 chunk=chunk)
-    else:                                           # pure SSM (mamba2)
-        return x + L.ssm_forward(lp["ssm"], h, cfg, impl=impl), {}
-    x, aux = _ffn(lp, _c(rules, x + a, *_act_spec(rules)), cfg, rules)
+    else:                                           # the Mamba2 mixer
+        a = L.ssm_forward(lp["ssm"], h, cfg, impl=impl)
+        if not _has_ffn(cfg):                       # mamba2: no FFN
+            return x + a, {}
+    x, aux = _ffn(lp, _c(rules, _residual(x, a, cfg), *_act_spec(rules)),
+                  cfg, rules)
     return _c(rules, x, *_act_spec(rules)), aux
 
 
@@ -408,14 +440,14 @@ def forward(params, cfg: ArchConfig, inputs, *, impl="dense", chunk=1024,
                                   x.device)
     aux = ({"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
            if cfg.moe is not None else {})
-    for lp in params["blocks"]:
+    for i, lp in enumerate(params["blocks"]):
         if remat and grad:
             # the blocks draw no random numbers: no RNG state to replay
-            x, a = checkpoint(block_forward, lp, x, cos, sin, cfg, impl=impl,
-                              chunk=chunk, rules=rules, use_reentrant=False,
-                              preserve_rng_state=False)
+            x, a = checkpoint(block_forward, lp, x, cos, sin, cfg, layer=i,
+                              impl=impl, chunk=chunk, rules=rules,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = block_forward(lp, x, cos, sin, cfg, impl=impl,
+            x, a = block_forward(lp, x, cos, sin, cfg, layer=i, impl=impl,
                                  chunk=chunk, rules=rules)
         for k, v in a.items():
             aux[k] = aux[k] + v
@@ -475,31 +507,35 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
     Sliding-window archs get a ring buffer of ``window`` entries; MLA
     caches the compressed latent (``ckv``, ``krope``); SSM archs carry O(1)
-    state (fp32 whatever ``dtype``)."""
+    state (fp32 whatever ``dtype``).  Under a per-layer pattern each entry
+    stacks the layers that have it only: ``k``/``v`` the attention layers,
+    ``ssm``/``conv`` the Mamba2 ones, each at its
+    ``cfg.state_index``."""
     device = default_device(device)
-    n = cfg.n_layers
     c = {}
-    if cfg.attn_kind in ("gqa", "hybrid"):
+    n_kv = cfg.n_mixers("gqa", "hybrid")
+    if n_kv:
         size = max_len
         if cfg.sliding_window is not None:
             size = min(max_len, cfg.sliding_window)
         hkv, hd = cfg.n_kv_heads, cfg.head_dim
-        c["k"] = torch.zeros((n, batch, size, hkv, hd), dtype=dtype,
+        c["k"] = torch.zeros((n_kv, batch, size, hkv, hd), dtype=dtype,
                              device=device)
-        c["v"] = torch.zeros((n, batch, size, hkv, hd), dtype=dtype,
+        c["v"] = torch.zeros((n_kv, batch, size, hkv, hd), dtype=dtype,
                              device=device)
     if cfg.attn_kind == "mla":
-        m = cfg.mla
+        n, m = cfg.n_layers, cfg.mla
         c["ckv"] = torch.zeros((n, batch, max_len, m.kv_lora_rank),
                                dtype=dtype, device=device)
         c["krope"] = torch.zeros((n, batch, max_len, m.qk_rope_dim),
                                  dtype=dtype, device=device)
-    if cfg.attn_kind in ("none", "hybrid"):
+    n_ssm = cfg.n_mixers("none", "hybrid")
+    if n_ssm:
         s = cfg.ssm
         _, nh, conv_dim = L.ssm_dims(cfg)
-        c["ssm"] = torch.zeros((n, batch, nh, s.head_dim, s.d_state),
+        c["ssm"] = torch.zeros((n_ssm, batch, nh, s.head_dim, s.d_state),
                                dtype=torch.float32, device=device)
-        c["conv"] = torch.zeros((n, batch, s.d_conv - 1, conv_dim),
+        c["conv"] = torch.zeros((n_ssm, batch, s.d_conv - 1, conv_dim),
                                 dtype=dtype, device=device)
     return c
 
@@ -511,13 +547,13 @@ def cache_pspecs(cfg: ArchConfig, rules: ShardRules):
     b = rules.batch
     m = rules.model
     c = {}
-    if cfg.attn_kind in ("gqa", "hybrid"):
+    if cfg.n_mixers("gqa", "hybrid"):
         c["k"] = P(None, b, m, None, None)
         c["v"] = P(None, b, m, None, None)
     if cfg.attn_kind == "mla":
         c["ckv"] = P(None, b, m, None)
         c["krope"] = P(None, b, m, None)
-    if cfg.attn_kind in ("none", "hybrid"):
+    if cfg.n_mixers("none", "hybrid"):
         c["ssm"] = P(None, b, None, None, None)
         c["conv"] = P(None, b, None, None)
     return c
@@ -542,18 +578,22 @@ def block_decode(lp, x, cache, layer: int, length, cos, sin,
     at ``layer`` in place.  ``length`` is an int or a 0-d tensor on the
     cache's device.  ``impl="kernel"`` runs GQA and hybrid attention
     through the fused decode attention; MLA and SSM blocks ignore it.
-    Returns x."""
+    Under a per-layer pattern the layer's state lies at its
+    ``cfg.state_index`` in its own entries.  Returns x."""
+    kind = cfg.mixer(layer)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if cfg.attn_kind == "gqa":
-        a, _, _ = L.gqa_decode(lp["attn"], h, cache["k"][layer],
-                               cache["v"][layer], length, cos, sin, cfg,
-                               impl=impl)
-        x = x + a
-    elif cfg.attn_kind == "mla":
+    if kind == "gqa":
+        j = cfg.state_index(layer)
+        with region("mixer.attn"):
+            a, _, _ = L.gqa_decode(lp["attn"], h, cache["k"][j],
+                                   cache["v"][j], length, cos, sin, cfg,
+                                   impl=impl)
+        x = _residual(x, a, cfg)
+    elif kind == "mla":
         a, _, _ = L.mla_decode(lp["attn"], h, cache["ckv"][layer],
                                cache["krope"][layer], length, cos, sin, cfg)
         x = x + a
-    elif cfg.attn_kind == "hybrid":
+    elif kind == "hybrid":
         sub = {name: cache[name][layer] for name in ("k", "v", "ssm", "conv")}
         a, sub = L.hybrid_decode(lp["mixer"], h, sub, length, cos, sin, cfg,
                                  impl=impl)
@@ -561,11 +601,15 @@ def block_decode(lp, x, cache, layer: int, length, cos, sin,
         _store(cache, "conv", layer, sub["conv"])
         x = x + a
     else:
-        y, st, conv = L.ssm_decode(lp["ssm"], h, cache["ssm"][layer],
-                                   cache["conv"][layer], cfg)
-        _store(cache, "ssm", layer, st)
-        _store(cache, "conv", layer, conv)
-        return _c(rules, x + y, *_act_spec(rules))
+        j = cfg.state_index(layer)
+        with region("mixer.ssm"):
+            y, st, conv = L.ssm_decode(lp["ssm"], h, cache["ssm"][j],
+                                       cache["conv"][j], cfg)
+            _store(cache, "ssm", j, st)
+            _store(cache, "conv", j, conv)
+        if not _has_ffn(cfg):                       # mamba2: no FFN
+            return _c(rules, x + y, *_act_spec(rules))
+        x = _residual(x, y, cfg)
     # the residual stream's constraints (the identity on a plain tensor)
     # reduce a DTensor's pending sums once a block, where XLA's sharding
     # propagation does so without being told

@@ -59,10 +59,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.graphs import (_capture_stream, _counted_capture,
-                                _GraphCache, _spec, _warmed)
+                                _GraphCache, _spec, _warmed,
+                                capture_kernel_nodes)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.spans import REGISTRY
+from repro_torch.spans import REGISTRY, NodeTally, tallying
 
 
 # ---------------------------------------------------------------------------
@@ -100,25 +101,27 @@ def _pad_cache(kv, size: int, window):
 
 
 def _block_prefill(lp, x, cos, sin, cfg: ArchConfig, max_len: int,
-                   cache_dtype, *, impl, chunk):
-    """block_forward + cache capture. Returns (x, cache_entry)."""
+                   cache_dtype, *, layer: int, impl, chunk):
+    """block_forward + cache capture, by layer ``layer``'s mixer. Returns
+    (x, cache_entry): the entries of the cache that the mixer has."""
+    kind = cfg.mixer(layer)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     entry: Dict[str, Any] = {}
     size = max_len if cfg.sliding_window is None else min(
         max_len, cfg.sliding_window)
-    if cfg.attn_kind == "gqa":
+    if kind == "gqa":
         a, (k, v) = L.gqa_forward(lp["attn"], h, cos, sin, cfg, impl=impl,
                                   window=cfg.sliding_window, chunk=chunk)
-        x = x + a
+        x = T._residual(x, a, cfg)
         entry["k"] = _pad_cache(k.to(cache_dtype), size, cfg.sliding_window)
         entry["v"] = _pad_cache(v.to(cache_dtype), size, cfg.sliding_window)
-    elif cfg.attn_kind == "mla":
+    elif kind == "mla":
         a, (ckv, krope) = L.mla_forward(lp["attn"], h, cos, sin, cfg,
                                         impl=impl, chunk=chunk)
         x = x + a
         entry["ckv"] = _pad_seq(ckv.to(cache_dtype), max_len)
         entry["krope"] = _pad_seq(krope.to(cache_dtype), max_len)
-    elif cfg.attn_kind == "hybrid":
+    elif kind == "hybrid":
         a, (k, v) = L.gqa_forward(lp["mixer"]["attn"], h, cos, sin, cfg,
                                   impl=impl, window=cfg.sliding_window,
                                   chunk=chunk)
@@ -132,10 +135,10 @@ def _block_prefill(lp, x, cos, sin, cfg: ArchConfig, max_len: int,
         entry["v"] = _pad_cache(v.to(cache_dtype), size, cfg.sliding_window)
         entry["ssm"] = ssm_state
         entry["conv"] = conv_state
-    else:                                            # pure SSM
+    else:                                            # the Mamba2 mixer
         y, (ssm_state, conv_state) = L.ssm_forward(
             lp["ssm"], h, cfg, return_state=True, impl=impl)
-        x = x + y
+        x = T._residual(x, y, cfg)
         entry["ssm"] = ssm_state
         entry["conv"] = conv_state
     return T._ffn(lp, x, cfg)[0], entry
@@ -145,20 +148,23 @@ def prefill_with_cache(params, cfg: ArchConfig, inputs, max_len: int, *,
                        impl="dense", chunk=1024, cache_dtype=torch.bfloat16):
     """Returns (logits (B,S,V...), cache) — cache layout == init_cache,
     with the SSM and conv states in the activations' type (fp32), as in the
-    reference.  ``inputs`` as :func:`transformer.forward` takes them
-    (embeds and M-RoPE positions for qwen2-vl)."""
+    reference: each entry stacks the layers that have it, in order (under
+    a per-layer pattern, each at its ``cfg.state_index``).  ``inputs`` as
+    :func:`transformer.forward` takes them (embeds and M-RoPE positions
+    for qwen2-vl)."""
     x = T._embed_inputs(params, cfg, inputs)
     cos, sin = T._positions_cos_sin(cfg, inputs, x.shape[1],
                                     T._rope_dim(cfg), x.device)
     entries = []
-    for lp in params["blocks"]:
+    for i, lp in enumerate(params["blocks"]):
         x, entry = _block_prefill(lp, x, cos, sin, cfg, max_len, cache_dtype,
-                                  impl=impl, chunk=chunk)
+                                  layer=i, impl=impl, chunk=chunk)
         entries.append(entry)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = T._logits(params, cfg, x)
-    cache = {name: torch.stack([e[name] for e in entries])
-             for name in entries[0]}
+    names = dict.fromkeys(name for e in entries for name in e)
+    cache = {name: torch.stack([e[name] for e in entries if name in e])
+             for name in names}
     return logits, cache
 
 
@@ -354,7 +360,14 @@ class DecodeGraph:
 
     As :class:`PrefillGraph`'s, its ``launches`` hold the kernel nodes of
     each counted kernel (``decode_attention`` with ``impl="kernel"``),
-    which every replay adds to the kernel's counter."""
+    which every replay adds to the kernel's counter.  ``span_nodes`` holds
+    the kernel nodes captured inside each of the model's regions
+    (``spans.region``: ``mixer.attn``, ``mixer.ssm``, ``moe.route``,
+    ``moe.experts``, ``moe.shared``), summed over the layers, read from the
+    capturing graph at each region's entry and exit.  Where an expert
+    layer counts (``layers.counting`` around the first call), the graph
+    adds its routed pairs, at every replay, to the counter installed
+    then."""
 
     def __init__(self, params, cfg: ArchConfig, cache, inputs, impl: str):
         dev = next(iter(cache.values())).device
@@ -378,10 +391,14 @@ class DecodeGraph:
                     f"the decode step widened cache {name!r} from {t.dtype} "
                     f"to {self.cache[name].dtype}: a captured step needs the "
                     f"cache in the types the prefill gives")
-        cap = _counted_capture(
-            stream, lambda: T.decode_step(self.params, self.cfg, self.cache,
-                                          self.inputs, impl=self.impl),
-            what="decode graph")
+        tally = NodeTally(capture_kernel_nodes())
+        with tallying(tally):
+            cap = _counted_capture(
+                stream, lambda: T.decode_step(self.params, self.cfg,
+                                              self.cache, self.inputs,
+                                              impl=self.impl),
+                what="decode graph")
+        self.span_nodes = dict(tally.nodes)
         self.graph, (self.logits, _) = cap.graph, cap.out
         self.capture_s, self.nodes, self.kernels = (cap.seconds, cap.nodes,
                                                     cap.kernels)
@@ -514,7 +531,12 @@ class BatchServer:
     card, for the prefill (``prefill_*``) and the decode step
     (``graph_*``), the seconds this wave spent capturing graphs (0.0
     where it replayed ones made before) and the last graph's nodes and
-    kernel nodes (None on the host).  Each request is stamped when its
+    kernel nodes (None on the host), and the decode graph's kernel nodes
+    by region (``graph_span_nodes``, :class:`DecodeGraph`).  With an
+    expert layer, a wave that ran to its end also records its decode
+    steps' (token, held expert) pairs routed (``moe_routed``, counted on
+    the device and read once, as the wave ends).  Each request is stamped
+    when its
     wave takes it (``Request.t_wave``), so its time to the first token
     splits into its wait in the queue (``t_wave - t_submit``) and its
     wave's prefill (``t_first_token - t_wave``).  The server, its prefill
@@ -544,6 +566,11 @@ class BatchServer:
         self.metrics: Dict[str, float] = {"decoded_tokens": 0,
                                           "completed": 0}
         self.waves: List[Dict[str, Any]] = []
+        # the expert layers' routed pairs over the decode steps, and what
+        # the last wave's end read of them
+        self.moe_routed = None if cfg.moe is None else torch.zeros(
+            (), dtype=torch.int64, device=self.device)
+        self._moe_read = 0
 
     def submit(self, req: Request) -> Request:
         self._queue.put(req)
@@ -644,7 +671,7 @@ class BatchServer:
                     dinp = {"tokens": torch.from_numpy(t).to(self.device),
                             "length": torch.tensor(length, dtype=torch.int32,
                                                    device=self.device)}
-                with span("serve.decode.call"):
+                with span("serve.decode.call"), L.counting(self.moe_routed):
                     logits, cache = self._decode(self.params, cache, dinp)
                 with span("serve.decode.tokens"):
                     lg = logits[:, 0] if cfg.n_codebooks == 1 else \
@@ -661,6 +688,11 @@ class BatchServer:
         if g is not None and n_steps > 1:
             stats["graph_capture_s"] = decode.capture_s - decode_spent
             stats["graph_nodes"], stats["graph_kernels"] = g.nodes, g.kernels
+            stats["graph_span_nodes"] = dict(g.span_nodes)
+        if self.moe_routed is not None:
+            read = int(self.moe_routed)
+            stats["moe_routed"] = read - self._moe_read
+            self._moe_read = read
         now = time.monotonic()
         for r in wave:
             r.t_done = now

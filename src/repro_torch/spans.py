@@ -16,10 +16,15 @@ where the profiler already runs, so the kernel loader and the graph
 functions record spans without loading ``repro_torch.core``.
 ``core.monitoring`` re-exports it, and its ``MetricsRegistry`` is a
 :class:`SpanTable` too.  :data:`REGISTRY` is the process-wide table that
-the LM stack (``graphs``, ``serve``, ``train``, ``kernels``) records into.
+the LM stack (``graphs``, ``serve``, ``train``, ``kernels``, ``models``)
+records into.  :func:`region` is a span of a part of a model step
+(``mixer.attn``, ``mixer.ssm``, ``moe.route``, ``moe.experts``,
+``moe.shared``) that also counts the kernel nodes a CUDA graph capture
+gains inside it, where the capture installs a :class:`NodeTally`.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
 import threading
@@ -318,3 +323,65 @@ class SpanTable:
 
 # the process-wide table of the LM stack's spans
 REGISTRY = SpanTable()
+
+
+class NodeTally:
+    """The kernel nodes a CUDA graph capture gains inside each named
+    :func:`region`, while :func:`tallying` installs it on the capturing
+    thread.  ``read()`` returns the kernel nodes the capture holds so far
+    (a set of node handles, ``graphs.capture_kernel_nodes``); ``nodes``
+    maps each region's name to the kernel nodes captured inside it,
+    summed over its entries."""
+
+    def __init__(self, read):
+        self.read = read
+        self.nodes: Dict[str, int] = {}
+
+
+_TALLY = threading.local()
+
+
+@contextlib.contextmanager
+def tallying(tally: Optional[NodeTally]):
+    """Installs a :class:`NodeTally` on this thread until the block ends
+    (None installs nothing)."""
+    was = getattr(_TALLY, "tally", None)
+    _TALLY.tally = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.tally = was
+
+
+class _Region:
+    """A region while a tally is installed: its span, and the kernel
+    nodes the capture gained between its entry and its exit."""
+
+    __slots__ = ("name", "tally", "span", "before")
+
+    def __init__(self, name: str, tally: NodeTally):
+        self.name, self.tally = name, tally
+        self.span = REGISTRY.span(name)
+
+    def __enter__(self):
+        self.span.__enter__()
+        self.before = self.tally.read()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            gained = len(self.tally.read() - self.before)
+            self.tally.nodes[self.name] = \
+                self.tally.nodes.get(self.name, 0) + gained
+        return self.span.__exit__(*exc)
+
+
+def region(name: str):
+    """The span ``name`` of :data:`REGISTRY` around a part of a model
+    step; while a capture on this thread tallies its nodes
+    (:func:`tallying`), it also counts the kernel nodes captured inside
+    it.  Otherwise it is ``REGISTRY.span(name)`` itself."""
+    tally = getattr(_TALLY, "tally", None)
+    if tally is None:
+        return REGISTRY.span(name)
+    return _Region(name, tally)

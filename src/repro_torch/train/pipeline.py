@@ -67,11 +67,13 @@ class PipelineConfig:
     stage_axis: str = "pod"
 
 
-def _stage_forward(blocks, x, cos, sin, cfg: ArchConfig, rules):
-    """This stage's contiguous slice of layers, each recomputed in the
-    backward; the blocks' aux (MoE router losses) is dropped (C6)."""
-    for lp in blocks:
-        x, _ = checkpoint(T.block_forward, lp, x, cos, sin, cfg,
+def _stage_forward(blocks, first: int, x, cos, sin, cfg: ArchConfig,
+                   rules):
+    """This stage's contiguous slice of layers, from layer ``first``, each
+    recomputed in the backward; the blocks' aux (MoE router losses) is
+    dropped (C6)."""
+    for i, lp in enumerate(blocks, first):
+        x, _ = checkpoint(T.block_forward, lp, x, cos, sin, cfg, layer=i,
                           impl="dense", chunk=1024, rules=rules,
                           use_reentrant=False, preserve_rng_state=False)
     return x
@@ -234,7 +236,8 @@ def make_pp_loss_fn(cfg: ArchConfig, pc: PipelineConfig,
                      hop.recv(s, m, shape, params["ln_f"].dtype))
                 blocks = (params["blocks"][s * per:(s + 1) * per]
                           if group is None else params["blocks"])
-                y = _stage_forward(blocks, x, cos, sin, cfg, rules)
+                y = _stage_forward(blocks, s * per, x, cos, sin, cfg,
+                                   rules)
                 if s == S - 1:
                     h = L.rms_norm(y, params["ln_f"], cfg.norm_eps)
                     logits = T._logits(params, cfg, h, rules)

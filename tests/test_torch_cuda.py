@@ -2083,3 +2083,156 @@ def test_cuda_decode_graph_runs_one_attention_kernel_a_layer(sm90_device):
     fewer = graphs["dense"].kernels - graphs["kernel"].kernels
     assert fewer >= 25 * cfg.n_layers, (graphs["dense"].kernels,
                                         graphs["kernel"].kernels)
+
+
+# granite-4.0-h-small's attention: no rope, 32/8 heads of 128, a 768-slot
+# bf16 cache, the scores times its attention multiplier 1/128
+GRANITE_ATTENTION = (4, 768, 8, 4, 128, "bf16", "fp32", None, False)
+
+
+def test_cuda_decode_attention_takes_a_scale_without_rope(sm90_device):
+    """The kernel with ``scale`` 1/128 and no rope at granite's shape,
+    against its plain version with the same scale: the slot written with
+    the same bits, the output within one bf16 rounding (as
+    ``test_cuda_decode_attention_matches_plain``); and the scale is used
+    (the default 1/√128 gives other values)."""
+    q, k, v, kc, vc, _, _ = _decode_attention_inputs(GRANITE_ATTENTION,
+                                                     sm90_device)
+    q = q * 8.0                 # scores wide enough that the scale shows
+    for n in (0, 383, 767):
+        length = torch.tensor(n, dtype=torch.int32, device=sm90_device)
+        kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got = ops.decode_attention(q, k, v, kk, vk, length, None, None,
+                                   ring=False, scale=1 / 128)
+        want = tda.plain(q, k, v, kp, vp, n, None, None, ring=False,
+                         scale=1 / 128)
+        plain_default = tda.plain(q, k, v, kc.clone(), vc.clone(), n, None,
+                                  None, ring=False)
+        torch.cuda.synchronize()
+        assert torch.equal(kk, kp) and torch.equal(vk, vp), n
+        want = want.float().cpu().numpy()
+        np.testing.assert_allclose(got.float().cpu().numpy(), want,
+                                   rtol=2.0 ** -7,
+                                   atol=2.0 ** -8 * np.abs(want).max())
+        if n:
+            assert not np.allclose(plain_default.float().cpu().numpy(),
+                                   want, rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_takes_a_scale(sm90_device, dtype):
+    """The flash kernel with ``scale`` 1/128 at granite's heads (32/8 of
+    128) against the plain version with the same scale, within
+    ``_flash_tol``; the default scale's result differs."""
+    g = torch.Generator(device=sm90_device).manual_seed(11)
+    q = _randn(g, (2, 257, 32, 128), sm90_device, dtype) * 4
+    k = _randn(g, (2, 257, 8, 128), sm90_device, dtype)
+    v = _randn(g, (2, 257, 8, 128), sm90_device, dtype)
+    out = ops.flash_attention(q, k, v, causal=True, scale=1 / 128)
+    want = tfa.plain(q, k, v, causal=True, scale=1 / 128)
+    default = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **_flash_tol(want))
+    assert not torch.allclose(default.float(), want.float(), rtol=1e-2,
+                              atol=1e-2)
+
+
+def test_cuda_granite_decode_graph_counts_its_regions(sm90_device):
+    """granite-4.0-h-small at its widths and 4 layers (Mamba2, attention,
+    Mamba2, Mamba2; 9 of 72 experts, dropless): the decode graph's
+    replays give the eager step's bits; its capture records the kernel
+    nodes of each region, every region holding some and together no more
+    than the graph; the routed pairs it adds on the device at each replay
+    are the eager step's, in one node a layer outside the regions (a
+    graph captured without a counter has the same regions' nodes and 4
+    kernel nodes fewer)."""
+    import dataclasses
+    from repro_torch.models import layers as TL
+    from repro_torch.serve import make_decode_fn
+    cfg = dataclasses.replace(
+        get_arch("granite-4.0-h-small"), n_layers=4,
+        layer_types=("mamba", "attention", "mamba", "mamba"))
+    params = TT.init_params(cfg, device=sm90_device, seed=3)
+    gen = torch.Generator(device=sm90_device).manual_seed(5)
+    cache = TT.init_cache(cfg, 4, 96, device=sm90_device)
+    cache["conv"] = cache["conv"].float()
+    for t in cache.values():
+        t.normal_(generator=gen)
+    eager = {n: t.clone() for n, t in cache.items()}
+    uncounted = {n: t.clone() for n, t in cache.items()}
+    decode, plain = make_decode_fn(cfg, "kernel"), make_decode_fn(cfg,
+                                                                  "kernel")
+    zero = lambda: torch.zeros((), dtype=torch.int64, device=sm90_device)
+    counter, eager_counter = zero(), zero()
+    for pos in range(40, 44):
+        inp = {"tokens": torch.full((4, 1), pos, device=sm90_device),
+               "length": torch.tensor(pos, dtype=torch.int32,
+                                      device=sm90_device)}
+        with torch.inference_mode():
+            with TL.counting(counter):
+                got, cache = decode(params, cache, inp)
+            got = got.clone()
+            with TL.counting(eager_counter):
+                want, eager = TT.decode_step(params, cfg, eager, inp,
+                                             impl="kernel")
+            bare, uncounted = plain(params, uncounted, inp)
+        assert torch.equal(got, want), pos
+        assert torch.equal(bare, want), pos
+    g, h = decode.last, plain.last
+    torch.cuda.synchronize()
+    assert set(g.span_nodes) == {"mixer.attn", "mixer.ssm", "moe.route",
+                                 "moe.experts", "moe.shared"}
+    assert all(n > 0 for n in g.span_nodes.values()), g.span_nodes
+    assert sum(g.span_nodes.values()) <= g.kernels
+    assert g.span_nodes == h.span_nodes
+    assert g.kernels == h.kernels + 4
+    assert int(counter) == int(eager_counter) > 0
+
+
+def test_cuda_a_capture_outlives_a_collection_of_cyclic_graphs(
+        sm90_device):
+    """A graph left in a reference cycle is freed by the collector, which
+    may run inside a later capture (here ``fn`` runs it): that capture
+    still ends and replays, since ``_captured`` collects before it
+    begins."""
+    import gc
+    from repro_torch import graphs
+    stream = graphs._capture_stream(sm90_device)
+    x = torch.ones(4, device=sm90_device)
+
+    class Holder:
+        pass
+    held = Holder()
+    held.graph = graphs._captured(stream, lambda: x * 2)[0]
+    held.me = held                       # a cycle only the collector frees
+    del held
+
+    def collecting():
+        gc.collect()
+        return x + 1
+    graph, out, _ = graphs._captured(stream, collecting)
+    x.fill_(2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((4,), 3.0, device=sm90_device))
+
+
+def test_cuda_a_failed_capture_leaves_the_default_generator_drawing(
+        sm90_device):
+    """A capture that fails (a host read inside it) raises its own error,
+    and the device's default generator then draws outside a capture again,
+    from the seed and offset it had."""
+    from repro_torch import graphs
+    torch.cuda.manual_seed(123)
+    torch.randn(8, device=sm90_device)
+    gen = torch.cuda.default_generators[sm90_device.index or 0]
+    seed, offset = gen.initial_seed(), gen.get_offset()
+    x = torch.ones(4, device=sm90_device)
+    with pytest.raises(Exception):
+        graphs._captured(graphs._capture_stream(sm90_device),
+                         lambda: float(x.sum()))
+    assert (gen.initial_seed(), gen.get_offset()) == (seed, offset)
+    got = torch.randn(8, device=sm90_device)
+    torch.cuda.manual_seed(123)
+    torch.randn(8, device=sm90_device)
+    assert torch.equal(got, torch.randn(8, device=sm90_device))

@@ -24,12 +24,34 @@ ALL = list_archs()
 PARITY_ARCHS = ALL
 
 
+# fields the port's configs have and the reference's lack (a per-layer
+# pattern, the multipliers, a layer's share of its experts), with the
+# values every configuration of the reference's zoo must keep: the
+# defaults, which change nothing
+PORT_ONLY = {"layer_types": (), "attention_multiplier": None,
+             "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+             "logits_scaling": 1.0}
+PORT_ONLY_MOE = {"experts_held": 0, "dropless": False}
+
+
+def _as_reference(cfg) -> dict:
+    """``dataclasses.asdict`` of a port config without its port-only
+    fields, each checked at its default first."""
+    d = dataclasses.asdict(cfg)
+    for key, value in PORT_ONLY.items():
+        assert d.pop(key) == value, key
+    if d["moe"] is not None:
+        for key, value in PORT_ONLY_MOE.items():
+            assert d["moe"].pop(key) == value, key
+    return d
+
+
 @pytest.mark.parametrize("arch", ALL)
 def test_configs_equal_the_reference(arch):
     ref, port = get_arch(arch), tconfigs.get_arch(arch)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert _as_reference(port) == dataclasses.asdict(ref)
     for c_ref, c_port in ((ref, port), (ref.reduced(), port.reduced())):
-        assert dataclasses.asdict(c_port) == dataclasses.asdict(c_ref)
+        assert _as_reference(c_port) == dataclasses.asdict(c_ref)
         for attr in ("param_count", "active_param_count",
                      "padded_vocab_size", "head_dim"):
             assert getattr(c_port, attr) == getattr(c_ref, attr), attr
