@@ -256,6 +256,13 @@ DECODE_ATTENTION_MAIN = [(16, 1280, 5, 5, 64, 769),
 DECODE_ATTENTION_NOPE = [((32, 768, 8, 4, 128, 512), 1 / 128)]
 # the old row of the slot a step writes, far from any new k or v
 STALE_ROW = 40.0
+# the SSM decode step: (b, heads, head_dim, d_state, groups).  The
+# benchmark's batch_decode step (granite-4.0-h-small: 32 slots, 128 heads
+# of 64 at d_state 128, 134 MB of state a layer) and decode_heavy's
+# (hymba-1.5b: 16 slots, 50 heads of 64 at d_state 16); fp32, as served
+SSM_DECODE_MAIN = [(32, 128, 64, 128, 1), (16, 50, 64, 16, 1)]
+# bf16 activations and conv window, two groups
+SSM_DECODE_BF16 = [(4, 32, 64, 128, 2)]
 # tests/test_kernels.py:16-18 (fp32, bf16) and :123 (the SSD scan)
 TOL = {"fp32": 2e-5, "bf16": 5e-2}
 SSD_TOL = 1e-3
@@ -1070,6 +1077,108 @@ def time_decode_attention(torch, tda, device):
     return rows
 
 
+def ssm_decode_inputs(torch, case, device, seed, dtype=None):
+    """Card inputs at ``case``: xbc and dt_raw as strided views of one
+    in-projection row (as ``layers.ssm_decode`` passes them), a conv window
+    of d_conv 4, an fp32 state, the conv's weight and bias and the heads'
+    dt_bias, A_log (log 1..nh) and D."""
+    b, nh, hd, ds, ng = case
+    dtype = dtype or torch.float32
+    conv_dim = nh * hd + 2 * ng * ds
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa
+    proj = mk(b, conv_dim + nh + 3).to(dtype)
+    return dict(
+        xbc=proj[:, :conv_dim], dt_raw=proj[:, conv_dim:conv_dim + nh],
+        conv_state=mk(b, 3, conv_dim).to(dtype), ssm_state=mk(b, nh, hd, ds),
+        conv_w=(mk(4, conv_dim) * 0.5).to(dtype),
+        conv_b=(mk(conv_dim) * 0.1).to(dtype), dt_bias=mk(nh) * 0.5 - 3.0,
+        A_log=torch.log(torch.arange(1, nh + 1, device=device,
+                                     dtype=torch.float32)),
+        D=mk(nh)), ng
+
+
+def check_ssm_decode(torch, tsd, device):
+    """The SSM decode kernel (``tsd.launch``) against its plain version on
+    the same card inputs at ``SSM_DECODE_MAIN`` (fp32) and
+    ``SSM_DECODE_BF16``, four consecutive steps each side on its own
+    copies of the states: the conv window bit for bit, the state and y
+    within ``tsd.tolerance`` (the card tests' too); raises on a miss.  Returns the largest
+    error of y."""
+    worst = 0.0
+    cases = [(c, "fp32") for c in SSM_DECODE_MAIN] + [
+        (c, "bf16") for c in SSM_DECODE_BF16]
+    for case, dt in cases:
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        a, ng = ssm_decode_inputs(torch, case, device, sum(case), dtype)
+        mine = {k: a[k].clone() for k in ("conv_state", "ssm_state")}
+        errs, state_errs = [], []
+        for step in range(4):
+            a["xbc"].mul_(-1.0 if step % 2 else 1.0)
+            got = tsd.launch(a["xbc"], a["dt_raw"], mine["conv_state"],
+                             mine["ssm_state"], a["conv_w"], a["conv_b"],
+                             a["dt_bias"], a["A_log"], a["D"], n_groups=ng)
+            want = tsd.plain(**a, n_groups=ng)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            sdiff = (mine["ssm_state"] - a["ssm_state"]).abs()
+            if (got.shape != want.shape or got.dtype != want.dtype
+                    or not torch.equal(mine["conv_state"], a["conv_state"])
+                    or bool((diff > tsd.tolerance(want)).any())
+                    or bool((sdiff > tsd.tolerance(a["ssm_state"])).any())):
+                raise AssertionError(
+                    f"SSM decode kernel vs plain at {case} {dt} step "
+                    f"{step}: y max error {float(diff.max())} of "
+                    f"{float(want.float().abs().max())}, state "
+                    f"{float(sdiff.max())}, window equal "
+                    f"{torch.equal(mine['conv_state'], a['conv_state'])}")
+            errs.append(float(diff.max()))
+            state_errs.append(float(sdiff.max()))
+        worst = max(worst, max(errs))
+        emit("check_ssm_decode", case=list(case), dtype=dt,
+             max_abs_err=errs, state_max_abs_err=state_errs)
+        del a, mine
+    return worst
+
+
+def ssm_decode_bound_ms(case):
+    """Bytes: the fp32 state read and written once, the fp32 conv window
+    (3 entries) read and written, xbc, dt_raw, the conv's weight and bias
+    and the heads' three vectors read, y written.  Operations: ~7 flops a
+    state element (the update's three products and sum, C·h's FMA) at the
+    fp32 peak."""
+    b, nh, hd, ds, ng = case
+    conv_dim = nh * hd + 2 * ng * ds
+    f4 = ELEM_BYTES["fp32"]
+    nbytes = f4 * (2 * b * nh * hd * ds + 2 * 3 * b * conv_dim
+                   + b * (conv_dim + nh) + 5 * conv_dim + 3 * nh
+                   + b * nh * hd)
+    flops = 7.0 * b * nh * hd * ds
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["fp32"]
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def time_ssm_decode(torch, tsd, device):
+    """Kernel and plain times at ``SSM_DECODE_MAIN``: the kernel and the
+    plain version (the op-by-op step's ops, with its copies into the
+    cache) by :func:`graph_ms`, the plain version eagerly too
+    (:func:`time_ms`).  Each call advances the states in place."""
+    rows = []
+    for case in SSM_DECODE_MAIN:
+        a, ng = ssm_decode_inputs(torch, case, device, 29)
+        kernel_ms = graph_ms(torch, lambda: tsd.launch(**a, n_groups=ng))
+        plain = lambda: tsd.plain(**a, n_groups=ng)  # noqa
+        row = {"kernel": "ssm_decode", "case": list(case), "dtype": "fp32",
+               "kernel_ms": kernel_ms, "plain_graph_ms": graph_ms(torch,
+                                                                  plain),
+               "plain_ms": time_ms(torch, plain, 3), "library_ms": None}
+        row["bound_ms"], row["bound_by"] = ssm_decode_bound_ms(case)
+        emit("timing", **row)
+        rows.append(row)
+        del a
+    return rows
+
+
 def _top2(torch, logits, vocab):
     """The two largest logits of each row, on the host."""
     return torch.topk(logits[..., :vocab].float(), 2, dim=-1).values.cpu()
@@ -1087,17 +1196,17 @@ class CheckedDecode:
     returned), the graph's and the eager step's ms (host clock between
     synchronisations; the step that captured, which also ran the warm-up
     step, is counted in ``capture_ms`` and not in ``graph_ms``), the
-    graph's nodes and kernel nodes, the decode attention launches its
-    kernel nodes hold and those the wrapper counted at its capture, and
-    the steps that agreed bit for bit.  The eager checks' own decode
-    attention launches are kept apart in ``check_launches``."""
+    graph's nodes and kernel nodes, the launches of each kernel of
+    :func:`kernel_counters` its kernel nodes hold and those the wrappers
+    counted at its capture, and the steps that agreed bit for bit.  The
+    eager checks' own launches are kept apart in ``check_launches``."""
 
     def __init__(self, torch, T, cfg, decode):
         self.torch, self.T, self.cfg, self.decode = torch, T, cfg, decode
         self.waves = []
         self._cache = None
-        self.counter = kernel_counters()["decode_attention"]
-        self.check_launches = 0
+        self.counters = kernel_counters()
+        self.check_launches = dict.fromkeys(self.counters, 0)
 
     @property
     def graphs(self):
@@ -1125,13 +1234,14 @@ class CheckedDecode:
         logits, out = self.decode(params, cache, inputs)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        before = self.counter.count
+        before = {k: c.count for k, c in self.counters.items()}
         with torch.inference_mode():
             want, _ = self.T.decode_step(params, self.cfg, ref, inputs,
                                          impl=self.decode.impl)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        self.check_launches += self.counter.count - before
+        for k, c in self.counters.items():
+            self.check_launches[k] += c.count - before[k]
         g = self.decode.last
         if g is None:
             raise AssertionError("a decode step on the card went through "
@@ -1142,8 +1252,10 @@ class CheckedDecode:
             w["graph_ms"].append((t1 - t0) * 1e3)
         w["eager_ms"].append((t2 - t1) * 1e3)
         w["nodes"], w["kernels"] = g.nodes, g.kernels
-        w["launches"] = dict(g.launches).get(self.counter, 0)
-        w["counted"] = dict(g.counted).get(self.counter, 0)
+        names = {id(c): name for name, c in self.counters.items()}
+        for key in ("launches", "counted"):
+            w[key] = {names[id(c)]: n for c, n in getattr(g, key)
+                      if id(c) in names}
         w["steps"] += 1
         if torch.equal(logits, want):
             w["bitwise"] += 1
@@ -1173,7 +1285,9 @@ def graph_rows(waves, read_ms=None):
                        eager_ms=statistics.mean(w["eager_ms"]),
                        capture_ms=w["capture_ms"], nodes=w["nodes"],
                        kernel_nodes=w["kernels"],
-                       decode_attention_nodes=w["launches"],
+                       decode_attention_nodes=w["launches"].get(
+                           "decode_attention", 0),
+                       ssm_decode_nodes=w["launches"].get("ssm_decode", 0),
                        steps=w["steps"],
                        bitwise_steps=w["bitwise"],
                        max_rel_err=w["max_rel_err"])
@@ -1191,7 +1305,8 @@ def kernel_counters():
     from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
-    return {**fa.LAUNCHES, **ssd.LAUNCHES, **tda.LAUNCHES}
+    from repro_torch.kernels import ssm_decode as tsd
+    return {**fa.LAUNCHES, **ssd.LAUNCHES, **tda.LAUNCHES, **tsd.LAUNCHES}
 
 
 class CheckedPrefill:
@@ -1572,24 +1687,27 @@ def check_launches(checked, counters, layers):
 
 
 def check_decode_launches(checked, layers):
-    """A checked run's decode attention launches on the served path (the
-    count less the eager checks' own, :class:`CheckedDecode`): every step
-    launches the kernel once a layer (``layers``, 0 for an arch without
-    GQA or hybrid attention), a replay from its graph's kernel nodes and
-    a capturing step in its eager warm-up.  Raises otherwise, and where a
-    wave's graph does not hold ``layers`` of them, read from its kernel
-    nodes' names and counted by the wrapper at its capture.  Returns the
-    served launches."""
-    served = checked.counter.count - checked.check_launches
+    """A checked run's launches of each decode kernel on the served path
+    (the counts less the eager checks' own, :class:`CheckedDecode`): every
+    step launches the kernel ``name`` ``layers[name]`` times (0 for an
+    arch whose layers do not run it), a replay from its graph's kernel
+    nodes and a capturing step in its eager warm-up.  Raises otherwise,
+    and where a wave's graph does not hold ``layers[name]`` of them, read
+    from its kernel nodes' names and counted by the wrapper at its
+    capture.  Returns the served launches by name."""
     steps = sum(w["steps"] for w in checked.waves)
-    if served != steps * layers:
-        raise AssertionError(f"decode attention launched {served} times in "
-                             f"{steps} steps, not {layers} a step")
-    for w in checked.waves:
-        if (w["launches"], w["counted"]) != (layers, layers):
-            raise AssertionError(f"a decode graph holds {w['launches']} "
-                                 f"decode attention launches (counted "
-                                 f"{w['counted']}), not {layers}")
+    served = {}
+    for name, n in layers.items():
+        served[name] = (checked.counters[name].count
+                        - checked.check_launches[name])
+        if served[name] != steps * n:
+            raise AssertionError(f"{name} launched {served[name]} times in "
+                                 f"{steps} steps, not {n} a step")
+        for w in checked.waves:
+            got = (w["launches"].get(name, 0), w["counted"].get(name, 0))
+            if got != (n, n):
+                raise AssertionError(f"a decode graph holds {got[0]} {name} "
+                                     f"launches (counted {got[1]}), not {n}")
     return served
 
 
@@ -1619,8 +1737,9 @@ def serve_hymba(torch, serve, T, fa, ssd, device):
                                               device, "kernel", prompts)
     launches = check_launches(server.checked_prefill, counters,
                               dict.fromkeys(counters, cfg.n_layers))
-    launches["decode_attention"] = check_decode_launches(server.checked,
-                                                         cfg.n_layers)
+    launches.update(check_decode_launches(
+        server.checked, {"decode_attention": cfg.n_layers,
+                         "ssm_decode": cfg.n_layers}))
     read_ms = (decode_weight_bytes(cfg, params, SERVE_SLOTS)
                / HBM_BYTES_PER_S * 1e3)
     stats = serve_stats(torch, server, done,
@@ -4225,8 +4344,10 @@ def _serve_zoo_run(torch, serve, T, L, fa, ssd, device, arch, layers,
     launches = check_launches(server.checked_prefill, counters,
                               {name: layers * int(on)
                                for name, on in runs.items()})
-    launches["decode_attention"] = check_decode_launches(
-        server.checked, layers * int(runs["flash_attention"]))
+    launches.update(check_decode_launches(
+        server.checked,
+        {"decode_attention": layers * int(runs["flash_attention"]),
+         "ssm_decode": layers * int(runs["ssd_chunk_scan"])}))
     served = {name: c.count for name, c in kernel_counters().items()}
     stats = serve_stats(torch, server, done,
                         check_served(done, len(prompts), cfg,
@@ -4329,6 +4450,7 @@ def main() -> int:
     from repro_torch.kernels import kmeans as kk
     from repro_torch.kernels import ref as tref
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssm_decode as tsd
     from repro_torch.launch import train as TL
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
@@ -4377,6 +4499,8 @@ def main() -> int:
     timings += time_attention_ssd(torch, fa, ssd, device)
     worst["decode_attention"] = check_decode_attention(torch, tda, device)
     timings += time_decode_attention(torch, tda, device)
+    worst["ssm_decode"] = check_ssm_decode(torch, tsd, device)
+    timings += time_ssm_decode(torch, tsd, device)
     params, cfg, prompts, done, captured, serve_launches = serve_hymba(
         torch, serve, T, fa, ssd, device)
     launches.update(serve_launches)
@@ -4478,6 +4602,17 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "library_backend": main_row["library_backend"]})
+    main_row = next(r for r in timings if r["kernel"] == "ssm_decode"
+                    and tuple(r["case"]) == SSM_DECODE_MAIN[0])
+    kernels.append({
+        "name": "ssm_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_decode.cu",
+        "replaces": None, "fuses": "src/repro/models/layers.py:728",
+        "launches": launches["ssm_decode"],
+        "max_abs_err": worst["ssm_decode"],
+        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

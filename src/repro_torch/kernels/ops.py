@@ -6,7 +6,8 @@ port dispatches on the device of the tensors it is given: a CPU tensor
 takes the kernel's plain version, a CUDA tensor launches the Hopper kernel
 on an sm_90 card or raises (:mod:`repro_torch.kernels.kmeans`,
 :mod:`~repro_torch.kernels.flash_attention`, :mod:`~repro_torch.kernels.ssd`,
-:mod:`~repro_torch.kernels.decode_attention`).
+:mod:`~repro_torch.kernels.decode_attention`,
+:mod:`~repro_torch.kernels.ssm_decode`).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.kernels.kmeans import DEFAULT_BLOCK_N
 from repro_torch.kernels.kmeans import kmeans_assign as _kmeans_assign
 from repro_torch.kernels.kmeans import kmeans_assign_update as _kmeans_fused
 from repro_torch.kernels.ssd import ssd_chunk_scan as _ssd
+from repro_torch.kernels.ssm_decode import ssm_decode as _ssm_decode
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -52,3 +54,12 @@ def kmeans_assign_update(points, centroids, *, precision: str = "fp32",
 def ssd_chunk_scan(xh, dt, A, B_, C_, D, *, chunk: int = 256):
     """Mamba2 SSD: (y (B,S,nh,hd), final state (B,nh,hd,ds))."""
     return _ssd(xh, dt, A, B_, C_, D, chunk=chunk)
+
+
+def ssm_decode(xbc, dt_raw, conv_state, ssm_state, conv_w, conv_b, dt_bias,
+               A_log, D, *, n_groups: int):
+    """One Mamba2 decode step's recurrence: xbc (B,conv_dim) pre-conv and
+    dt_raw (B,nh); the conv window (B,d_conv-1,conv_dim) and the fp32 state
+    (B,nh,hd,ds) updated in place -> y (B,1,nh·hd)."""
+    return _ssm_decode(xbc, dt_raw, conv_state, ssm_state, conv_w, conv_b,
+                       dt_bias, A_log, D, n_groups=n_groups)

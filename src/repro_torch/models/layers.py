@@ -48,6 +48,7 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attention import ring_slot
 from repro_torch.kernels import ssd as kssd
+from repro_torch.kernels import ssm_decode as kssm
 from repro_torch.spans import region
 
 IMPLS = ("dense", "chunked", "kernel")
@@ -1126,39 +1127,35 @@ def ssm_forward(p, x, cfg: ArchConfig, *, return_state=False, impl="dense"):
     return out
 
 
-def ssm_decode(p, x, ssm_state, conv_state, cfg: ArchConfig):
+def ssm_in_place(impl: str, ssm_state) -> bool:
+    """Whether :func:`ssm_decode` at ``impl`` updates the states in place
+    (``impl="kernel"`` on a plain tensor) rather than returning new ones."""
+    return impl == "kernel" and not is_dtensor(ssm_state)
+
+
+def ssm_decode(p, x, ssm_state, conv_state, cfg: ArchConfig, *,
+               impl="dense"):
     """Stateful single-token decode.
 
     x (B,1,D); ssm_state (B,nh,hd,ds) float32; conv_state (B,d_conv-1,
-    conv_dim).  Returns (y, new_ssm_state, new_conv_state) as new tensors
+    conv_dim).  Returns (y, new_ssm_state, new_conv_state).  Op by op
+    (``impl="dense"``, or a ``DTensor`` state) the states are new tensors
     (the caller stores them); the new conv state has the promoted type of
-    the old one and x, as in the reference.
+    the old one and x, as in the reference.  Where :func:`ssm_in_place`,
+    the conv window's step, dt, the state update and y are one
+    :func:`repro_torch.kernels.ops.ssm_decode` call, which updates
+    ``ssm_state`` and ``conv_state`` in place and returns them: a conv
+    state narrower than x raises, so the caller widens it first.
     """
     s = cfg.ssm
-    d_in, nh, _ = ssm_dims(cfg)
-    b = x.shape[0]
     z, xbc, dt_raw = _ssm_split(p, x, cfg)
-    xbc = xbc[:, 0]                                          # (B,conv_dim)
-    dtype = torch.promote_types(conv_state.dtype, xbc.dtype)
-    window = torch.cat([conv_state.to(dtype), xbc[:, None, :].to(dtype)], 1)
-    out = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(dtype)) \
-        + p["conv_b"]
-    xbc_t = silu(out)
-    new_conv = window[:, 1:]
-    xh, B_, C_ = torch.split(
-        xbc_t, [d_in, s.n_groups * s.d_state, s.n_groups * s.d_state], dim=-1)
-    xh = xh.reshape(b, nh, s.head_dim)
-    rep = nh // s.n_groups
-    B_ = B_.reshape(b, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
-    C_ = C_.reshape(b, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
-    dt = softplus(dt_raw[:, 0].float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt * A)                                   # (B,nh)
-    upd = torch.einsum("bh,bhp,bhn->bhpn", dt, xh.float(), B_.float())
-    new_state = dA[:, :, None, None] * ssm_state + upd
-    y = torch.einsum("bhpn,bhn->bhp", new_state, C_.float())
-    y = y + xh.float() * p["D"][None, :, None]
-    y = y.reshape(b, 1, d_in).to(x.dtype)
+    args = (xbc[:, 0], dt_raw[:, 0], conv_state, ssm_state, p["conv_w"],
+            p["conv_b"], p["dt_bias"], p["A_log"], p["D"])
+    if ssm_in_place(impl, ssm_state):
+        y = kops.ssm_decode(*args, n_groups=s.n_groups)
+        new_state, new_conv = ssm_state, conv_state
+    else:
+        y, new_state, new_conv = kssm.step(*args, n_groups=s.n_groups)
     y = rms_norm(y * silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"], new_state, new_conv
 
@@ -1192,10 +1189,14 @@ def hybrid_decode(p, x, cache, length, cos, sin, cfg: ArchConfig, *,
                   impl="dense"):
     """``cache`` holds this layer's k, v (updated in place), ssm and conv;
     returns (y, {"k", "v", "ssm", "conv"}) with the new ssm and conv
-    states.  ``length`` and ``impl`` as :func:`gqa_decode` takes them."""
+    states (``cache``'s own, updated in place, where
+    :func:`ssm_in_place`).  ``length`` and ``impl`` as :func:`gqa_decode`
+    and :func:`ssm_decode` take them."""
     a, ck, cv = gqa_decode(p["attn"], x, cache["k"], cache["v"], length,
                            cos, sin, cfg, impl=impl)
-    m, st, conv = ssm_decode(p["ssm"], x, cache["ssm"], cache["conv"], cfg)
+    with region("mixer.ssm"):
+        m, st, conv = ssm_decode(p["ssm"], x, cache["ssm"], cache["conv"],
+                                 cfg, impl=impl)
     y = 0.5 * (rms_norm(a, p["attn_norm"], cfg.norm_eps)
                + rms_norm(m, p["ssm_norm_out"], cfg.norm_eps))
     return y, {"k": ck, "v": cv, "ssm": st, "conv": conv}

@@ -571,15 +571,34 @@ def _store(cache, name: str, layer: int, value) -> None:
     cache[name][layer].copy_(value)
 
 
+def _ssm_step(cache, j: int, dtype, impl: str, step):
+    """Run ``step(ssm, conv) -> (out, new_ssm, new_conv)`` on the stacked
+    ``ssm`` and ``conv`` entries at ``j`` and keep its states.  Where
+    :func:`L.ssm_in_place` the step updates them in place, so a conv entry
+    narrower than ``dtype`` is widened first, as :func:`_store` would
+    widen it after; otherwise the new states are stored.  Returns out."""
+    in_place = L.ssm_in_place(impl, cache["ssm"])
+    wide = torch.promote_types(cache["conv"].dtype, dtype)
+    if in_place and cache["conv"].dtype != wide:
+        cache["conv"] = cache["conv"].to(wide)
+    out, st, conv = step(cache["ssm"][j], cache["conv"][j])
+    if not in_place:
+        _store(cache, "ssm", j, st)
+        _store(cache, "conv", j, conv)
+    return out
+
+
 def block_decode(lp, x, cache, layer: int, length, cos, sin,
                  cfg: ArchConfig, rules: Optional[ShardRules] = None, *,
                  impl: str = "dense"):
     """One block of one decode step; updates ``cache`` (the stacked dict)
     at ``layer`` in place.  ``length`` is an int or a 0-d tensor on the
     cache's device.  ``impl="kernel"`` runs GQA and hybrid attention
-    through the fused decode attention; MLA and SSM blocks ignore it.
-    Under a per-layer pattern the layer's state lies at its
-    ``cfg.state_index`` in its own entries.  Returns x."""
+    through the fused decode attention, and the Mamba2 and hybrid SSM step
+    through the fused SSM decode, which updates the stacked ``ssm`` and
+    ``conv`` entries in place (on a ``DTensor`` cache the SSM step stays op
+    by op); MLA blocks ignore it.  Under a per-layer pattern the layer's
+    state lies at its ``cfg.state_index`` in its own entries.  Returns x."""
     kind = cfg.mixer(layer)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "gqa":
@@ -594,19 +613,19 @@ def block_decode(lp, x, cache, layer: int, length, cos, sin,
                                cache["krope"][layer], length, cos, sin, cfg)
         x = x + a
     elif kind == "hybrid":
-        sub = {name: cache[name][layer] for name in ("k", "v", "ssm", "conv")}
-        a, sub = L.hybrid_decode(lp["mixer"], h, sub, length, cos, sin, cfg,
-                                 impl=impl)
-        _store(cache, "ssm", layer, sub["ssm"])
-        _store(cache, "conv", layer, sub["conv"])
-        x = x + a
+        def hybrid(ssm, conv):
+            sub = {"k": cache["k"][layer], "v": cache["v"][layer],
+                   "ssm": ssm, "conv": conv}
+            a, sub = L.hybrid_decode(lp["mixer"], h, sub, length, cos, sin,
+                                     cfg, impl=impl)
+            return a, sub["ssm"], sub["conv"]
+        x = x + _ssm_step(cache, layer, h.dtype, impl, hybrid)
     else:
         j = cfg.state_index(layer)
         with region("mixer.ssm"):
-            y, st, conv = L.ssm_decode(lp["ssm"], h, cache["ssm"][j],
-                                       cache["conv"][j], cfg)
-            _store(cache, "ssm", j, st)
-            _store(cache, "conv", j, conv)
+            y = _ssm_step(cache, j, h.dtype, impl,
+                          lambda ssm, conv: L.ssm_decode(
+                              lp["ssm"], h, ssm, conv, cfg, impl=impl))
         if not _has_ffn(cfg):                       # mamba2: no FFN
             return _c(rules, x + y, *_act_spec(rules))
         x = _residual(x, y, cfg)
@@ -632,10 +651,12 @@ def decode_step(params, cfg: ArchConfig, cache, inputs, *,
     same ops on the same shapes: the step a CUDA graph can capture
     (``serve.make_decode_fn``).  ``impl="kernel"`` runs each GQA or
     hybrid layer's attention core (rope, slot writes, attention over the
-    valid keys) as one ``kernels.ops.decode_attention`` call: its plain
-    version on a CPU cache, the kernel on the card; ``"dense"`` runs it op
-    by op, and is what a ``DTensor`` cache takes.  Returns (logits,
-    cache) — the same cache dict, updated in place."""
+    valid keys) as one ``kernels.ops.decode_attention`` call, and each
+    Mamba2 or hybrid layer's SSM recurrence (conv window, dt, the state
+    update in place, C·h + D·x) as one ``kernels.ops.ssm_decode`` call:
+    their plain versions on a CPU cache, the kernels on the card;
+    ``"dense"`` runs them op by op, and is what a ``DTensor`` cache takes.
+    Returns (logits, cache) — the same cache dict, updated in place."""
     if impl not in DECODE_IMPLS:
         raise ValueError(f"impl must be one of {DECODE_IMPLS}, got {impl!r}")
     # the constraint is the identity on a plain tensor; a DTensor lookup

@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kmeans as tk
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd as tssd
+from repro_torch.kernels import ssm_decode as tsd
 from repro_torch.ml import (AutoEncoder, IsolationForest, KMeans,
                             MiniAppGenerator)
 from repro_torch.ml import isoforest as tif
@@ -2045,6 +2046,7 @@ def test_cuda_decode_graph_runs_one_attention_kernel_a_layer(sm90_device):
     cfg = dataclasses.replace(get_arch("hymba-1.5b"), n_layers=2)
     params = TT.init_params(cfg, device=sm90_device, seed=3)
     counter = tda.LAUNCHES["decode_attention"]
+    ssm_counter = tsd.LAUNCHES["ssm_decode"]
     graphs = {}
     for impl in ("dense", "kernel"):
         # its own generator: a capture that failed in an earlier test can
@@ -2056,7 +2058,7 @@ def test_cuda_decode_graph_runs_one_attention_kernel_a_layer(sm90_device):
             cache[name].normal_(generator=gen)
         eager = {n: t.clone() for n, t in cache.items()}
         decode = make_decode_fn(cfg, impl)
-        before = counter.count
+        before, ssm_before = counter.count, ssm_counter.count
         for pos in range(40, 44):
             inp = {"tokens": torch.full((4, 1), pos, device=sm90_device),
                    "length": torch.tensor(pos, dtype=torch.int32,
@@ -2073,16 +2075,25 @@ def test_cuda_decode_graph_runs_one_attention_kernel_a_layer(sm90_device):
         torch.cuda.synchronize()
         launches = {c.symbols: n for c, n in g.launches}
         if impl == "kernel":
-            assert launches == {counter.symbols: cfg.n_layers}
+            # the hybrid layer's SSM step is one fused launch too
+            assert launches == {counter.symbols: cfg.n_layers,
+                                ssm_counter.symbols: cfg.n_layers}
             assert dict(g.counted) == dict(g.launches)
             # the eager steps 4, the warm-up 1, three replays: a step each
             assert counter.count - before == 8 * cfg.n_layers
+            assert ssm_counter.count - ssm_before == 8 * cfg.n_layers
         else:
             assert counter.symbols not in launches
+            assert ssm_counter.symbols not in launches
             assert counter.count == before
+            assert ssm_counter.count == ssm_before
     fewer = graphs["dense"].kernels - graphs["kernel"].kernels
     assert fewer >= 25 * cfg.n_layers, (graphs["dense"].kernels,
                                         graphs["kernel"].kernels)
+    # the hybrid layer's SSM step: its region holds fewer nodes fused
+    dense, kernel = (graphs[i].span_nodes["mixer.ssm"]
+                     for i in ("dense", "kernel"))
+    assert 0 < kernel < dense, (kernel, dense)
 
 
 # granite-4.0-h-small's attention: no rope, 32/8 heads of 128, a 768-slot
@@ -2187,6 +2198,207 @@ def test_cuda_granite_decode_graph_counts_its_regions(sm90_device):
     assert g.span_nodes == h.span_nodes
     assert g.kernels == h.kernels + 4
     assert int(counter) == int(eager_counter) > 0
+
+
+# the SSM decode step: (b, heads, head_dim, d_state, groups) at
+# granite-4.0-h-small's batch_decode layer and hymba-1.5b's decode_heavy one
+SSM_DECODE_CASES = [(32, 128, 64, 128, 1), (16, 50, 64, 16, 1)]
+# the other instances: bf16 with two groups, the tiny widths
+SSM_DECODE_MORE = [((4, 32, 64, 128, 2), torch.bfloat16),
+                   ((3, 16, 16, 16, 2), torch.bfloat16),
+                   ((2, 8, 16, 128, 1), torch.float32),
+                   ((5, 12, 16, 16, 3), torch.float32)]
+
+
+def _ssm_decode_inputs(case, device, seed=0, dtype=torch.float32):
+    """xbc and dt_raw as strided views of one in-projection row (as
+    ``layers.ssm_decode`` passes them), a d_conv 4 window, an fp32 state,
+    the conv's weight and bias, dt_bias, A_log (log 1..nh) and D."""
+    b, nh, hd, ds, ng = case
+    conv_dim = nh * hd + 2 * ng * ds
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa
+    proj = mk(b, conv_dim + nh + 3).to(dtype)
+    return dict(
+        xbc=proj[:, :conv_dim], dt_raw=proj[:, conv_dim:conv_dim + nh],
+        conv_state=mk(b, 3, conv_dim).to(dtype), ssm_state=mk(b, nh, hd, ds),
+        conv_w=(mk(4, conv_dim) * 0.5).to(dtype),
+        conv_b=(mk(conv_dim) * 0.1).to(dtype), dt_bias=mk(nh) * 0.5 - 3.0,
+        A_log=torch.log(torch.arange(1, nh + 1, device=device,
+                                     dtype=torch.float32)),
+        D=mk(nh)), ng
+
+
+def _ssm_close(got, want):
+    """Kernel against plain, within the kernel's ``tolerance``."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tsd.tolerance(want)).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("case,dtype", [(c, torch.float32)
+                                        for c in SSM_DECODE_CASES]
+                         + SSM_DECODE_MORE)
+def test_cuda_ssm_decode_matches_plain(sm90_device, case, dtype):
+    """The kernel against its plain version on the card, four consecutive
+    steps each on its own copies of the states: the shifted window bit for
+    bit, the state and y within :func:`_ssm_close`; one launch counted a
+    call."""
+    a, ng = _ssm_decode_inputs(case, sm90_device, sum(case), dtype)
+    mine = {k: a[k].clone() for k in ("conv_state", "ssm_state")}
+    counter = tsd.LAUNCHES["ssm_decode"]
+    for step in range(4):
+        a["xbc"].mul_(-1.0 if step % 2 else 1.0)
+        before = counter.count
+        got = ops.ssm_decode(a["xbc"], a["dt_raw"], mine["conv_state"],
+                             mine["ssm_state"], a["conv_w"], a["conv_b"],
+                             a["dt_bias"], a["A_log"], a["D"], n_groups=ng)
+        assert counter.count == before + 1
+        want = tsd.plain(**a, n_groups=ng)
+        torch.cuda.synchronize()
+        assert torch.equal(mine["conv_state"], a["conv_state"]), step
+        _ssm_close(mine["ssm_state"], a["ssm_state"])
+        _ssm_close(got, want)
+
+
+@pytest.mark.parametrize("case", SSM_DECODE_CASES)
+def test_cuda_ssm_decode_graph_replays_are_the_eager_launches(sm90_device,
+                                                              case):
+    """One launch captured in a CUDA graph and replayed over 8 positions,
+    each with new xbc and dt_raw copied into its static inputs, against
+    eager launches on copies of the states: y, the state and the window
+    bit for bit at every position (a race on the group's shared B and C
+    window, or a state the graph no longer writes, would show), and the
+    window bit for bit the plain version's."""
+    a, ng = _ssm_decode_inputs(case, sm90_device, 5)
+    eager = {k: a[k].clone() for k in ("conv_state", "ssm_state")}
+    plain = {k: a[k].clone() for k in ("conv_state", "ssm_state")}
+    run = lambda: tsd.launch(**a, n_groups=ng)  # noqa
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    saved = {k: a[k].clone() for k in ("conv_state", "ssm_state")}
+    with torch.cuda.stream(side):
+        run()                                   # builds and loads
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for k, t in saved.items():                  # undo the warm-up's step
+        a[k].copy_(t)
+    g = torch.Generator(device=sm90_device).manual_seed(9)
+    for pos in range(8):
+        xbc = torch.randn(a["xbc"].shape, generator=g, device=sm90_device)
+        dt_raw = torch.randn(a["dt_raw"].shape, generator=g,
+                             device=sm90_device)
+        a["xbc"].copy_(xbc)
+        a["dt_raw"].copy_(dt_raw)
+        graph.replay()
+        want = tsd.launch(xbc, dt_raw, eager["conv_state"],
+                          eager["ssm_state"], a["conv_w"], a["conv_b"],
+                          a["dt_bias"], a["A_log"], a["D"], n_groups=ng)
+        ref = tsd.plain(xbc, dt_raw, plain["conv_state"], plain["ssm_state"],
+                        a["conv_w"], a["conv_b"], a["dt_bias"], a["A_log"],
+                        a["D"], n_groups=ng)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), pos
+        for k in ("conv_state", "ssm_state"):
+            assert torch.equal(a[k], eager[k]), (pos, k)
+        assert torch.equal(a["conv_state"], plain["conv_state"]), pos
+        _ssm_close(a["ssm_state"], plain["ssm_state"])
+        _ssm_close(out, ref)
+    del graph
+
+
+def _kernel_node(node):
+    """(mangled name, threads launched) of a captured graph's kernel
+    node."""
+    from repro_torch import graphs
+    cu = ctypes.CDLL("libcuda.so.1")
+    p, name = graphs._KernelNodeParams(), ctypes.c_char_p()
+    assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                            ctypes.byref(p)) == 0
+    err = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func))
+           if p.func else cu.cuKernelGetName(ctypes.byref(name),
+                                             ctypes.c_void_p(p.kern)))
+    assert err == 0 and name.value is not None
+    threads = (p.grid[0] * p.grid[1] * p.grid[2]
+               * p.block[0] * p.block[1] * p.block[2])
+    return name.value.decode(), threads
+
+
+def test_cuda_decode_graph_runs_one_ssm_kernel_a_layer(sm90_device,
+                                                       monkeypatch):
+    """granite-4.0-h-small at its widths and 4 layers (3 Mamba2): with
+    ``impl="kernel"`` each ``mixer.ssm`` region of the decode graph holds
+    exactly one ``ssm_decode`` kernel node and no elementwise or copy node
+    as wide as the layer's state (the op-by-op graph's regions hold such
+    nodes, so the test sees them), read from the captured graph's nodes;
+    the regions hold at least 60% fewer kernel nodes than the op-by-op
+    graph's; the replays give the eager kernel step's bits, and every step
+    counts one launch a Mamba2 layer."""
+    import dataclasses
+    from repro_torch import spans as tspans
+    from repro_torch.serve import make_decode_fn
+    cfg = dataclasses.replace(
+        get_arch("granite-4.0-h-small"), n_layers=4,
+        layer_types=("mamba", "attention", "mamba", "mamba"))
+    params = TT.init_params(cfg, device=sm90_device, seed=3)
+    seen = []
+    exit_ = tspans._Region.__exit__
+
+    def recording_exit(self, *exc):
+        if exc[0] is None:
+            seen.append((self.name, self.tally.read() - self.before))
+        return exit_(self, *exc)
+
+    monkeypatch.setattr(tspans._Region, "__exit__", recording_exit)
+    counter = tsd.LAUNCHES["ssm_decode"]
+    b, n_mamba = 4, 3
+    state_numel = b * 128 * 64 * 128
+    regions, graphs = {}, {}
+    for impl in ("dense", "kernel"):
+        gen = torch.Generator(device=sm90_device).manual_seed(5)
+        cache = TT.init_cache(cfg, b, 96, device=sm90_device)
+        cache["conv"] = cache["conv"].float()
+        for t in cache.values():
+            t.normal_(generator=gen)
+        eager = {n: t.clone() for n, t in cache.items()}
+        decode = make_decode_fn(cfg, impl)
+        del seen[:]
+        before = counter.count
+        for pos in range(40, 44):
+            inp = {"tokens": torch.full((b, 1), pos, device=sm90_device),
+                   "length": torch.tensor(pos, dtype=torch.int32,
+                                          device=sm90_device)}
+            with torch.inference_mode():
+                got, cache = decode(params, cache, inp)
+                got = got.clone()
+                want, eager = TT.decode_step(params, cfg, eager, inp,
+                                             impl=impl)
+            assert torch.equal(got, want), (impl, pos)
+        for name, t in eager.items():
+            assert torch.equal(cache[name], t), (impl, name)
+        torch.cuda.synchronize()
+        graphs[impl] = decode.last
+        regions[impl] = [[_kernel_node(n) for n in nodes]
+                         for name, nodes in seen if name == "mixer.ssm"]
+        assert len(regions[impl]) == n_mamba, impl
+        wide = [[(k, t) for k, t in r if 16 * t >= state_numel and any(
+            w in k for w in ("elementwise", "reduce", "Cat", "copy"))]
+            for r in regions[impl]]
+        ssm = [[k for k, _ in r if counter.counts(k)] for r in regions[impl]]
+        if impl == "kernel":
+            assert all(len(s) == 1 for s in ssm), ssm
+            assert wide == [[]] * n_mamba, wide
+            # the eager steps 4, the warm-up 1, three replays
+            assert counter.count - before == 8 * n_mamba
+        else:
+            assert ssm == [[]] * n_mamba
+            assert all(len(w) >= 3 for w in wide), wide
+            assert counter.count == before
+    dense, kernel = (graphs[i].span_nodes["mixer.ssm"]
+                     for i in ("dense", "kernel"))
+    assert kernel <= 0.4 * dense, (kernel, dense)
 
 
 def test_cuda_a_capture_outlives_a_collection_of_cyclic_graphs(
